@@ -1,0 +1,43 @@
+"""Plain PyTorch oracles for the ported kernels (the allclose references).
+
+Counterpart of ``repro.kernels.ref``; this slice ports ``attention_ref``,
+the dense attention the paged decode kernel is checked against.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+__all__ = ["attention_ref"]
+
+
+def attention_ref(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Sk, KV, D)
+    v: torch.Tensor,  # (B, Sk, KV, D)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Materialized-logits GQA attention, f32 softmax."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qf = q.float() / math.sqrt(D)
+    kf = k.float()
+    vf = v.float()
+    qg = qf.reshape(B, Sq, KV, G, D)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, kf)
+    qpos = q_offset + torch.arange(Sq, device=q.device)
+    kpos = torch.arange(Sk, device=q.device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    logits = logits.masked_fill(~mask[None, None, None], -1e30)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, vf)
+    return out.reshape(B, Sq, H, D).to(q.dtype)
