@@ -1,5 +1,6 @@
 """Architecture configs: the ``ModelConfig`` schema, the registry
-(``--arch <id>``) and the ``reduced()`` transform used by CPU tests.
+(``--arch <id>``), the workload ``SHAPES`` and the ``reduced()`` transform
+used by CPU tests.
 
 Own copy of ``repro.configs`` cut to what the ported slice reads: dense
 decoder-only stacks of ``attn`` blocks (GQA self-attention with RoPE and
@@ -13,8 +14,8 @@ import importlib
 from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Tuple
 
-__all__ = ["ModelConfig", "get_config", "list_configs", "reduced",
-           "register"]
+__all__ = ["ModelConfig", "ShapeSpec", "SHAPES", "get_config",
+           "list_configs", "reduced", "register"]
 
 
 @dataclass(frozen=True)
@@ -57,6 +58,22 @@ class ModelConfig:
         m = self.vocab_pad_multiple
         return ((self.vocab_size + m - 1) // m) * m
 
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+# the reference's workload shapes (``repro.configs.SHAPES``)
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
 
 _REGISTRY: Dict[str, ModelConfig] = {}
 _MODULES = ("gemma_7b",)

@@ -45,59 +45,11 @@
 // cannot be checked on the host without a device round trip; the kernel
 // writes NaN for that row instead of reading out of bounds.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
 constexpr int kMaxWarps = 32;
-constexpr int kMaxHeadTile = 8;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_f32(float x, float* dst) { *dst = x; }
-__device__ __forceinline__ void store_f32(float x, __nv_bfloat16* dst) {
-  *dst = __float2bfloat16(x);
-}
-
-template <int BYTES>
-struct Raw;
-template <>
-struct Raw<2> { using type = unsigned short; };
-template <>
-struct Raw<4> { using type = unsigned int; };
-template <>
-struct Raw<8> { using type = uint2; };
-template <>
-struct Raw<16> { using type = uint4; };
-
-// N consecutive elements at src (aligned to min(16, N * sizeof(T)) bytes)
-// as f32, in vector loads of at most 16 bytes.
-template <typename T, int N>
-__device__ __forceinline__ void load_f32(const T* __restrict__ src,
-                                         float (&dst)[N]) {
-  constexpr int kBytes = int(sizeof(T)) * N;
-  constexpr int kChunk = kBytes < 16 ? kBytes : 16;
-  constexpr int kPer = kChunk / int(sizeof(T));
-  using V = typename Raw<kChunk>::type;
-#pragma unroll
-  for (int c = 0; c < N / kPer; ++c) {
-    V raw = reinterpret_cast<const V*>(src)[c];
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) dst[c * kPer + i] = to_f32(e[i]);
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 // VEC: head-dim elements per lane (D / 32, at least 1: for D < 32 the
 // lanes past D idle).  GQ: query heads per block (a power of two >= the
@@ -241,80 +193,45 @@ template <typename T, int VEC, int GQ>
 cudaError_t auto_warps(int* warps) {
   static int cached = 0;  // a race only writes the same value twice
   if (cached == 0) {
-    cudaFuncAttributes attr;
-    const cudaError_t err =
-        cudaFuncGetAttributes(&attr, paged_decode_kernel<T, VEC, GQ>);
+    const cudaError_t err = max_launchable_warps(
+        paged_decode_kernel<T, VEC, GQ>, kMaxWarps, &cached);
     if (err != cudaSuccess) return err;
-    int w = 1;
-    while (w * 2 <= kMaxWarps && w * 2 * 32 <= attr.maxThreadsPerBlock)
-      w *= 2;
-    cached = w;
   }
   *warps = cached;
   return cudaSuccess;
 }
 
-template <typename T, int VEC, int GQ>
-cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const void* pt, const void* len, void* out, int batch,
-                   int kv_heads, int head_dim, int gq, int n_groups,
-                   int group_tokens, int maxg, int num_warps,
-                   cudaStream_t stream) {
-  if (num_warps == 0) {
-    const cudaError_t err = auto_warps<T, VEC, GQ>(&num_warps);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid(kv_heads, batch, (gq + GQ - 1) / GQ);
-  const float scale = 1.0f / sqrtf((float)head_dim);
-  paged_decode_kernel<T, VEC, GQ><<<grid, num_warps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), static_cast<const int*>(pt),
-      static_cast<const int*>(len), static_cast<T*>(out), n_groups,
-      group_tokens, kv_heads, head_dim, gq, maxg, scale);
-  return cudaGetLastError();
-}
+// One launch, for the instantiation dispatch_decode picks.
+struct PagedLaunch {
+  const void *q, *kp, *vp, *pt, *len;
+  void* out;
+  int batch, kv_heads, head_dim, gq, n_groups, group_tokens, maxg, num_warps;
+  cudaStream_t stream;
 
-template <typename T, int VEC>
-cudaError_t launch_gq(int tile, const void* q, const void* kp,
-                      const void* vp, const void* pt, const void* len,
-                      void* out, int batch, int kv_heads, int head_dim,
-                      int gq, int n_groups, int group_tokens, int maxg,
-                      int num_warps, cudaStream_t stream) {
-#define REPRO_GQ_CASE(G)                                                     \
-  case G:                                                                    \
-    return launch<T, VEC, G>(q, kp, vp, pt, len, out, batch, kv_heads,      \
-                             head_dim, gq, n_groups, group_tokens, maxg,    \
-                             num_warps, stream);
-  switch (tile) {
-    REPRO_GQ_CASE(1)
-    REPRO_GQ_CASE(2)
-    REPRO_GQ_CASE(4)
-    REPRO_GQ_CASE(8)
+  template <typename T, int VEC, int GQ>
+  cudaError_t run() const {
+    int warps = num_warps;
+    if (warps == 0) {
+      const cudaError_t err = auto_warps<T, VEC, GQ>(&warps);
+      if (err != cudaSuccess) return err;
+    }
+    const dim3 grid(kv_heads, batch, (gq + GQ - 1) / GQ);
+    const float scale = 1.0f / sqrtf((float)head_dim);
+    paged_decode_kernel<T, VEC, GQ><<<grid, warps * 32, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(kp),
+        static_cast<const T*>(vp), static_cast<const int*>(pt),
+        static_cast<const int*>(len), static_cast<T*>(out), n_groups,
+        group_tokens, kv_heads, head_dim, gq, maxg, scale);
+    return cudaGetLastError();
   }
-#undef REPRO_GQ_CASE
-  return cudaErrorInvalidValue;
-}
+};
 
-template <typename T>
-cudaError_t launch_vec(int vec, int tile, const void* q, const void* kp,
-                       const void* vp, const void* pt, const void* len,
-                       void* out, int batch, int kv_heads, int head_dim,
-                       int gq, int n_groups, int group_tokens, int maxg,
-                       int num_warps, cudaStream_t stream) {
-#define REPRO_VEC_CASE(V)                                                    \
-  case V:                                                                    \
-    return launch_gq<T, V>(tile, q, kp, vp, pt, len, out, batch, kv_heads,  \
-                           head_dim, gq, n_groups, group_tokens, maxg,      \
-                           num_warps, stream);
-  switch (vec) {
-    REPRO_VEC_CASE(1)
-    REPRO_VEC_CASE(2)
-    REPRO_VEC_CASE(4)
-    REPRO_VEC_CASE(8)
+struct PagedSmem {
+  template <typename T, int VEC, int GQ>
+  int run() const {
+    return static_smem_bytes(paged_decode_kernel<T, VEC, GQ>);
   }
-#undef REPRO_VEC_CASE
-  return cudaErrorInvalidValue;
-}
+};
 
 }  // namespace
 
@@ -328,34 +245,26 @@ extern "C" int repro_paged_flash_decode(
     const void* page_table, const void* lengths, void* out, int batch,
     int heads, int kv_heads, int head_dim, int n_groups, int group_tokens,
     int maxg, int dtype, int num_warps, void* stream) {
-  if (batch < 1 || kv_heads < 1 || heads % kv_heads != 0 || n_groups < 1 ||
-      maxg < 1 || group_tokens < 16 || group_tokens % 16 != 0 ||
-      num_warps < 0 || num_warps > kMaxWarps ||
-      (num_warps & (num_warps - 1)) != 0 || (dtype != 0 && dtype != 1))
+  int vec, tile;
+  if (batch < 1 || n_groups < 1 || maxg < 1 || group_tokens < 16 ||
+      group_tokens % 16 != 0 || num_warps < 0 || num_warps > kMaxWarps ||
+      (num_warps & (num_warps - 1)) != 0 ||
+      !decode_plan(heads, kv_heads, head_dim, &vec, &tile))
     return (int)cudaErrorInvalidValue;
-  int vec;
-  switch (head_dim) {
-    case 8: case 16: case 32: vec = 1; break;
-    case 64: vec = 2; break;
-    case 128: vec = 4; break;
-    case 256: vec = 8; break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  const int gq = heads / kv_heads;
-  int tile = 1;
-  while (tile < gq && tile < kMaxHeadTile) tile <<= 1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_vec<float>(vec, tile, q, k_pages, v_pages,
-                                  page_table, lengths, out, batch, kv_heads,
-                                  head_dim, gq, n_groups, group_tokens, maxg,
-                                  num_warps, s);
-  return (int)launch_vec<__nv_bfloat16>(vec, tile, q, k_pages, v_pages,
-                                        page_table, lengths, out, batch,
-                                        kv_heads, head_dim, gq, n_groups,
-                                        group_tokens, maxg, num_warps, s);
+  const PagedLaunch launch{q, k_pages, v_pages, page_table, lengths, out,
+                           batch, kv_heads, head_dim, heads / kv_heads,
+                           n_groups, group_tokens, maxg, num_warps,
+                           static_cast<cudaStream_t>(stream)};
+  return (int)dispatch_decode(dtype, vec, tile, launch, cudaErrorInvalidValue);
 }
 
-extern "C" const char* repro_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+// The shared memory (bytes, all of it static) of one block of the
+// instantiation that serves this head layout and dtype, as compiled; -1
+// for a layout the kernel does not take.  The tuning space's
+// smem_footprint must give the same number (chip_smoke.py checks it).
+extern "C" int repro_paged_smem_bytes(int heads, int kv_heads, int head_dim,
+                                      int dtype) {
+  int vec, tile;
+  if (!decode_plan(heads, kv_heads, head_dim, &vec, &tile)) return -1;
+  return dispatch_decode(dtype, vec, tile, PagedSmem{}, -1);
 }

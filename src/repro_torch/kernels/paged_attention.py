@@ -24,29 +24,37 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["paged_flash_decode_cuda", "paged_attention_ref",
+__all__ = ["paged_flash_decode_cuda", "paged_attention_ref", "smem_bytes",
            "HEAD_DIMS", "NUM_WARPS"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 NUM_WARPS = (1, 2, 4, 8, 16, 32)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_TILE = 8
+
+
+def smem_bytes(heads: int, kv_heads: int, head_dim: int) -> int:
+    """Static shared memory of one block: per-warp (m, l) for 32 warps
+    and the merged acc and (m, l) of a head tile, f32.  The library
+    reports the compiled kernel's own figure (``repro_paged_smem_bytes``);
+    ``chip_smoke.py`` holds the two equal."""
+    g = heads // kv_heads
+    tile = 1
+    while tile < g and tile < MAX_HEAD_TILE:
+        tile *= 2
+    return (2 * 32 * tile + tile * max(head_dim, 32) + 2 * tile) * 4
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    fn = build.load("paged_attention").repro_paged_flash_decode
+def _lib():
+    lib = build.load("paged_attention")
+    fn = lib.repro_paged_flash_decode
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn
-
-
-def _error_string(code: int) -> str:
-    es = build.load("paged_attention").repro_cuda_error_string
-    es.argtypes = [ctypes.c_int]
-    es.restype = ctypes.c_char_p
-    return es(code).decode()
+    lib.repro_paged_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.repro_paged_smem_bytes.restype = ctypes.c_int
+    return lib
 
 
 def _check(q, k_pages, v_pages, page_table, lengths, num_warps) -> None:
@@ -64,7 +72,7 @@ def _check(q, k_pages, v_pages, page_table, lengths, num_warps) -> None:
         raise ValueError("k_pages and v_pages differ in shape")
     if Dk != D:
         raise ValueError(f"head dim {D} of q != {Dk} of the pools")
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in build.DTYPE_CODE:
         raise TypeError(f"dtype {q.dtype} not supported; bf16 or f32")
     if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise TypeError("q and the pools must share one dtype")
@@ -101,9 +109,9 @@ def paged_flash_decode_cuda(
 ) -> torch.Tensor:
     """Decode attention through the page table, (B, H, D) in q's dtype.
 
-    ``num_warps`` sets the CUDA block size; None lets the launcher take
-    the most warps (up to 32) that the instantiation for this head dim
-    and head tile can launch with its register use.
+    ``num_warps`` sets the CUDA block size; None (or 0) lets the
+    launcher take the most warps (up to 32) that the instantiation for
+    this head dim and head tile can launch with its register use.
 
     CUDA tensors launch the kernel (or raise); CPU tensors run
     ``paged_attention_ref``.  Nothing falls back from one to the other.
@@ -112,19 +120,22 @@ def paged_flash_decode_cuda(
         return paged_attention_ref(q, k_pages, v_pages, page_table, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    num_warps = num_warps or None
     _check(q, k_pages, v_pages, page_table, lengths, num_warps)
     B, H, D = q.shape
     G, T, KV, _ = k_pages.shape
     out = torch.empty_like(q)
-    fn = _kernel_fn()
+    lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             B, H, KV, D, G, T, page_table.shape[1], _DTYPE_CODE[q.dtype],
-             num_warps or 0, stream)
+    err = lib.repro_paged_flash_decode(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H, KV,
+        D, G, T, page_table.shape[1], build.DTYPE_CODE[q.dtype],
+        num_warps or 0, stream)
     if err:
         raise RuntimeError(
-            f"paged decode kernel launch failed: {_error_string(err)} "
+            f"paged decode kernel launch failed: "
+            f"{lib.repro_cuda_error_string(err).decode()} "
             f"(B={B} H={H} KV={KV} D={D} T={T} "
             f"num_warps={num_warps or 'auto'})")
     paged_flash_decode_cuda.launches += 1

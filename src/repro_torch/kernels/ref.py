@@ -1,7 +1,9 @@
 """Plain PyTorch oracles for the ported kernels (the allclose references).
 
-Counterpart of ``repro.kernels.ref``; this slice ports ``attention_ref``,
-the dense attention the paged decode kernel is checked against.
+Counterpart of ``repro.kernels.ref``: ``attention_ref`` (the plain
+version of the flash attention kernel, and the dense attention the decode
+kernels are checked against) and ``rmsnorm_ref``.  ``gla_ref`` comes with
+its kernel (ROADMAP queue 2).
 """
 from __future__ import annotations
 
@@ -9,7 +11,7 @@ import math
 
 import torch
 
-__all__ = ["attention_ref"]
+__all__ = ["attention_ref", "rmsnorm_ref"]
 
 
 def attention_ref(
@@ -41,3 +43,12 @@ def attention_ref(
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", w, vf)
     return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    """Mean of squares in f32, ``x * rsqrt(var + eps) * scale``, cast
+    back to x's dtype."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)

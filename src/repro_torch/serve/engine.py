@@ -6,7 +6,10 @@ system under tune runs (``kv_layout="paged"``, ``schedule="fifo"``,
 requests into decode slots as they free up, each admission reserves its
 worst-case page groups and prefills its prompt through the exact chunked
 path, and decode is one batched dispatch per step at per-slot cache
-lengths, whose attention is the paged decode kernel.
+lengths, whose attention is the paged decode kernel.  With
+``autotune_kernels`` the engine tunes (or loads from the autotune cache)
+the launch configs of its kernel shapes on its own device and adopts the
+paged kernel's tuned ``pages_per_block`` as the pool's group size.
 
 ``ServeConfig`` keeps every field and default of the reference so configs
 carry over; a knob whose path is not ported yet raises
@@ -24,6 +27,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import autotune
 from repro_torch.models import Model
 from repro_torch.models.common import resolve_device
 
@@ -149,8 +153,6 @@ _UNPORTED = (
      "n-gram drafts with a verify pass (ROADMAP queue 1, item 3)"),
     ("retune", lambda c: c.retune,
      "online retuning (ROADMAP queue 1, item 5)"),
-    ("autotune_kernels", lambda c: c.autotune_kernels,
-     "kernel autotuning (ROADMAP queue 1, item 4)"),
     ("mesh_shape", lambda c: c.mesh_shape is not None,
      "multi-device serving (ROADMAP queue 1, item 8)"),
 )
@@ -213,13 +215,49 @@ class ServeEngine:
         orig = cfg
         self.cfg = cfg = dataclasses.replace(cfg)
         cfg._kv_pages_auto = getattr(orig, "_kv_pages_auto", False)
+        # tuned launch configs for this engine's kernel shapes (filled when
+        # cfg.autotune_kernels; consulted implicitly by kernels.ops)
+        self.kernel_blocks: Dict[str, Dict[str, Any]] = {}
+        mcfg = model.cfg
+        if cfg.autotune_kernels:
+            # The reference's quirk, kept: the engine tunes the dense
+            # decode kernel at its slot shape although the paged runtime
+            # never runs it (ROADMAP queue 3).
+            self.kernel_blocks["decode_attention"] = self._ensure(
+                "decode_attention",
+                {"B": cfg.batch_slots, "S": cfg.max_seq,
+                 "H": mcfg.n_heads, "KV": mcfg.n_kv_heads,
+                 "D": mcfg.head_dim_})
         self._size_paged_pool()
+
+    def _ensure(self, kernel: str, dims: Dict[str, int]) -> Dict[str, Any]:
+        return autotune.ensure_tuned(kernel, dims,
+                                     dtype=self.model.cfg.compute_dtype,
+                                     budget=self.cfg.autotune_budget,
+                                     device=self.device)
 
     def _size_paged_pool(self) -> None:
         """Fix the pool geometry: group size (pages), groups per request,
-        total groups."""
-        cfg = self.cfg
+        total groups.  With autotune the paged kernel's tuned
+        ``pages_per_block`` becomes the group size — clamped so one
+        max_seq request still fits the configured page budget — and the
+        winner is re-keyed under the runtime pool signature so the
+        ``ops.paged_flash_decode`` consult point hits it."""
+        cfg, mcfg = self.cfg, self.model.cfg
         ppb = cfg.kv_page_block
+        if cfg.autotune_kernels:
+            tuned = self._ensure(
+                "paged_attention",
+                {"B": cfg.batch_slots, "S": cfg.max_seq,
+                 "H": mcfg.n_heads, "KV": mcfg.n_kv_heads,
+                 "D": mcfg.head_dim_})
+            self.kernel_blocks["paged_attention"] = tuned
+            ppb = int(tuned.get("pages_per_block", ppb))
+        if not cfg._kv_pages_auto:
+            while ppb > 1:  # tuned tile too coarse for this page budget
+                if cfg.kv_cache_pages >= min_pages_for(cfg.max_seq, ppb):
+                    break
+                ppb //= 2
         self.group_pages = ppb
         self.group_tokens = ppb * PAGE_TOKENS
         self.max_groups = -(-cfg.max_seq // self.group_tokens)
@@ -231,6 +269,37 @@ class ServeEngine:
                                    self.max_groups + 1)
         # the config reports the pool actually allocated
         cfg.kv_cache_pages = self.pool_groups * ppb
+        if cfg.autotune_kernels:
+            self._rekey_paged_entry()
+
+    def _rekey_paged_entry(self) -> None:
+        """Persist the paged winner under the dims the pool actually runs
+        (S = max_groups * group_tokens), so the runtime consult point in
+        ``ops.paged_flash_decode`` resolves the tuned launch knobs."""
+        mcfg = self.model.cfg
+        logical = {"B": self.cfg.batch_slots, "S": self.cfg.max_seq,
+                   "H": mcfg.n_heads, "KV": mcfg.n_kv_heads,
+                   "D": mcfg.head_dim_}
+        runtime = dict(logical, S=self.max_groups * self.group_tokens)
+        if runtime == logical:
+            return
+        cache = autotune.default_cache()
+        backend = autotune.backend_name(self.device)
+        entry = cache.get("paged_attention", autotune.shape_sig(logical),
+                          mcfg.compute_dtype, backend)
+        if not entry:
+            return
+        # engines built again and again at one shape skip the full-file
+        # cache rewrite when the entry already landed
+        existing = cache.get_config("paged_attention",
+                                    autotune.shape_sig(runtime),
+                                    mcfg.compute_dtype, backend)
+        if existing == entry["config"]:
+            return
+        cache.put("paged_attention", autotune.shape_sig(runtime),
+                  mcfg.compute_dtype, backend, entry["config"],
+                  entry["value"],
+                  meta=dict(entry.get("meta", {}), rekeyed_from="logical"))
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

@@ -9,6 +9,7 @@ chunks.  The rest mirrors the paged cases of
 greedy), against the reference's one-request-per-wave oracle tokens.
 """
 import dataclasses
+import json
 
 import jax
 import numpy as np
@@ -188,3 +189,54 @@ def test_per_request_provenance(tiny):
         [len(p) for p in PROMPTS]
     assert all(0 <= r["ttft_s"] <= r["latency_s"] for r in res.per_request)
     assert res.p50_latency_s <= res.p95_latency_s
+
+
+# --- kernel autotune (ServeConfig.autotune_kernels) ----------------------
+@pytest.mark.parametrize("kv_pages", [None, 5], ids=["auto-pool", "tight"])
+def test_autotune_engine_adopts_seeded_group_size_like_reference(
+        tiny, tmp_path, monkeypatch, kv_pages):
+    """A paged_attention winner seeded in one cache file (backend cpu,
+    pages_per_block=2) is adopted by both engines with autotune on: the
+    same group size (clamped alike when the page budget is tight), the
+    same re-keyed runtime entry, the same tokens and decode steps.  The
+    cost models differ between the packages, so no tuning outcome is
+    compared."""
+    from repro import autotune as jautotune
+    from repro_torch import autotune
+
+    path = tmp_path / "autotune.json"
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(path))
+    jautotune.reset_default_cache()
+    autotune.reset_default_cache()
+    jm, jp, model, params = tiny
+    kw = _kw(max_seq=40, batch_slots=2, autotune_kernels=True,
+             autotune_budget=3, kv_cache_pages=kv_pages)
+    dims = {"B": 2, "S": 40, "H": TINY.padded_heads,
+            "KV": TINY.n_kv_heads, "D": TINY.head_dim_}
+    autotune.default_cache().put(
+        "paged_attention", autotune.shape_sig(dims), TINY.compute_dtype,
+        "cpu", {"pages_per_block": 2}, 1.0)
+    prompts, max_new = PROMPTS[:4], MAX_NEW[:4]
+    got_eng = ServeEngine(model, params, ServeConfig(**kw), device="cpu")
+    got = got_eng.generate(prompts, max_new)
+    want_eng = JaxServeEngine(jm, jp, JaxServeConfig(**kw))
+    want = want_eng.generate(prompts, max_new)
+    jautotune.reset_default_cache()
+    autotune.reset_default_cache()
+
+    assert got_eng.group_tokens == want_eng.group_tokens
+    assert got_eng.max_groups == want_eng.max_groups
+    assert got_eng.pool_groups == want_eng.pool_groups
+    assert got_eng.group_tokens == (2 if kv_pages is None else 1) * \
+        PAGE_TOKENS
+    assert got_eng.kernel_blocks["paged_attention"] == {"pages_per_block": 2}
+    assert set(got_eng.kernel_blocks) == set(want_eng.kernel_blocks)
+    assert got.tokens == want.tokens
+    assert got.steps == want.steps
+    keys = json.load(open(path))
+    if kv_pages is None:  # 40 tokens run as 2 groups of 32: S=64 re-keyed
+        runtime = autotune.shape_sig(dict(dims, S=64))
+        assert any(f"|paged_attention|{runtime}|" in k for k in keys)
+    # the decode-attention warm-up landed too (the reference's quirk:
+    # tuned, never run by the paged runtime)
+    assert any("|decode_attention|" in k for k in keys)

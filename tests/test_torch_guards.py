@@ -4,7 +4,9 @@
   anything of ``repro``: checked by importing each module on its own and
   by an AST scan of the sources.
 * Entry points default to ``device="cuda"`` and raise without a card.
-* Every serve knob whose path is not ported raises ``NotImplementedError``.
+* Every serve knob whose path is not ported raises ``NotImplementedError``
+  (``autotune_kernels`` is ported: ``tests/test_torch_engine.py`` holds it
+  against the reference engine).
 """
 import ast
 import json
@@ -155,7 +157,6 @@ def test_launcher_runs_on_the_cpu_when_asked(capsys):
     dict(share_prefix=True),
     dict(draft_len=2),
     dict(retune=True),
-    dict(autotune_kernels=True),
     dict(mesh_shape=(1, 2)),
 ], ids=lambda k: "-".join(f"{a}={b}" for a, b in k.items()))
 def test_unported_knob_raises(knob):
