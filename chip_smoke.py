@@ -10,13 +10,14 @@ Phases (each failure exits non-zero):
               anew (one nvcc each, all at once) even where a library of it
               is already built; each build's seconds.
 3. kernels  - each kernel against its plain PyTorch version on the card, at
-              the Gemma-7B shapes and the CPU tests' shapes, in bf16 and
-              f32; every config of each tuning space (KernelSpace) that
-              fits the card launched once at a Gemma-width shape and held
-              to the plain version, and its shared memory as the library
-              reports it held to the space's smem_footprint; each kernel
-              timed at its Gemma-7B shape beside its bound, the plain
-              version and one PyTorch library call.
+              the Gemma-7B (GLA: Zamba2-1.2B) shapes and the CPU tests'
+              shapes, in bf16 and f32; every config of each tuning space
+              (KernelSpace) that fits the card launched once at a
+              model-width shape and held to the plain version, and its
+              shared memory as the library reports it held to the space's
+              smem_footprint; each kernel timed at its main-path shape
+              beside its bound, the plain version and one PyTorch library
+              call where there is one.
 4. parity   - a tiny f32 model served on the card and on the CPU from the
               same weights: the greedy tokens must be equal.
 5. serve    - Gemma-7B at full width in bf16 (random weights from a seed,
@@ -35,9 +36,17 @@ Phases (each failure exits non-zero):
               that cache: the engine tunes its decode shapes on the card,
               adopts the paged winner's group size, and decodes through
               the tuned launch config.
+8. zamba2   - Zamba2-1.2B at full width in bf16 (random weights from a
+              seed), B=1, S=4096, under no-grad: ``Model.loss`` with
+              gla_impl="pallas" and attn_impl="pallas" must launch the GLA
+              kernel once per Mamba2 layer (36) and the flash-attention
+              kernel once per shared-block invocation (2); its loss and
+              hidden state are held to the same forward on the plain
+              versions (gla_impl="jnp", attn_impl="blocked").  (Main path
+              of port slice 3.)
 
-Launch counts are set to 0 just before each main path (phases 5, 6 and 7)
-and read just after.  The autotune cache of the whole run is a temporary
+Launch counts are set to 0 just before each main path (phases 5, 6, 7 and
+8) and read just after.  The autotune cache of the whole run is a temporary
 file (REPRO_AUTOTUNE_CACHE); nothing is written to the user's cache.  The
 line before the last is the card line; the line before it the
 ``{"kernels": [...]}`` line; the last line ``{"ok": true, ...}``.
@@ -52,6 +61,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -66,10 +76,12 @@ from repro_torch.configs import SHAPES, ModelConfig, get_config  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import decode_attention as fd  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import gla as gl  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels.ref import attention_ref, rmsnorm_ref  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.models.gla import chunked_gla  # noqa: E402
 from repro_torch.serve import ServeConfig, ServeEngine  # noqa: E402
 
 SEED = 0
@@ -77,8 +89,21 @@ DEV = "cuda"
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12  # f32 outside the tensor cores
 # the CPU tests' tolerances (the reference kernel tests' TOL)
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# phase 8, bf16 at full width, kernels against plain versions: the two
+# paths differ in f32 summation order (GLA, attention) and so in a few
+# bf16 roundings of each layer's output, compounding over 38 layers (a
+# bf16 rehearsal on the CPU at width 64 gives 1e-2 relative); a wrong
+# head, step or chunk boundary gives O(1)
+ZAMBA_LOSS_TOL = 1e-2       # absolute, on a loss near log(32000) = 10.4
+ZAMBA_HIDDEN_REL_TOL = 5e-2  # ||h - h_plain|| / ||h_plain||
+ZAMBA_ACC_FLIPS = 4          # argmax flips at near-ties, of 4096 tokens
+# the same comparison in f32 at one superblock's depth: no bf16 rounding,
+# the same cuBLAS GEMMs on both paths, only the GLA and attention sums
+# reassociated (each ~1e-6 relative)
+ZAMBA_F32_REL_TOL = 1e-3
 # full-width self-consistency: decode-path and prefill-path logits differ
 # only by bf16 rounding in different kernel orderings; a wrong page, head
 # or length in the decode kernel decorrelates them far below this
@@ -92,6 +117,7 @@ WRAPPERS = {
     "flash_attention": fa.flash_attention_cuda,
     "flash_decode": fd.flash_decode_cuda,
     "rmsnorm": rn.rmsnorm_cuda,
+    "gla": gl.gla_cuda,
 }
 SOURCES = {
     "paged_flash_decode": ("paged_attention.cu",
@@ -101,6 +127,7 @@ SOURCES = {
     "flash_decode": ("decode_attention.cu",
                      "src/repro/kernels/decode_attention.py:71"),
     "rmsnorm": ("rmsnorm.cu", "src/repro/kernels/rmsnorm.py:28"),
+    "gla": ("gla.cu", "src/repro/kernels/gla.py:81"),
 }
 
 
@@ -151,10 +178,11 @@ def time_ms(fn, runs: int, warmup: int = 3) -> float:
 # ---------------------------------------------------------------------------
 # bounds and library yardsticks
 # ---------------------------------------------------------------------------
-def bound_of(bytes_moved: float, flops: float):
+def bound_of(bytes_moved: float, flops: float,
+             flops_per_s: float = BF16_FLOPS_PER_S):
     """(least ms, what binds it) at the H100 SXM's published peaks."""
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    ops_ms = flops / flops_per_s * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
 
@@ -182,6 +210,26 @@ def rms_work(rows, D, esize):
     return 2 * rows * D * esize + D * 4, 4 * rows * D
 
 
+def gla_work(B, S, H, dk, dv, chunk, esize, shared_qk=False):
+    """Bytes (q and k read once: one (B, S, dk) row each when they are
+    broadcast over the heads; v, the f32 gates, y and the f32 final state
+    once) and flops of chunked GLA: q.k over the (t, s) pairs of each chunk
+    with s <= t (once for all heads when q and k are broadcast: only the
+    decay differs a head), the decay multiply and p.v a pair and head, and
+    the inter-chunk term and the state update, 2 * dk * dv a step and head
+    each."""
+    qk_rows = B * S * (1 if shared_qk else H)
+    L = min(chunk, S)
+    pairs = sum(n * (n + 1) // 2 for n in
+                [L] * (S // L) + ([S % L] if S % L else []))
+    nbytes = (2 * qk_rows * dk * esize + 2 * B * S * H * dv * esize
+              + B * S * H * 4 + B * H * dk * dv * 4)
+    qk_heads = 1 if shared_qk else H
+    flops = (B * qk_heads * pairs * 2 * dk
+             + B * H * (pairs * (1 + 2 * dv) + 4 * S * dk * dv))
+    return nbytes, flops
+
+
 def sdpa(q4, k4, v4, **kw):
     return torch.nn.functional.scaled_dot_product_attention(
         q4, k4, v4, enable_gqa=q4.shape[1] != k4.shape[1], **kw)
@@ -191,16 +239,22 @@ def rnd(g, shape, dtype):
     return torch.randn(shape, generator=g, device=DEV).to(dtype)
 
 
-def close(got, want, what) -> float:
+def close(got, want, what, scaled: bool = False) -> float:
     """Max abs error of a kernel against its plain version; fails unless
-    every element is within the CPU tests' tolerance."""
+    every element is within tol + tol * |ref|, tol the CPU tests'
+    tolerance.  ``scaled`` makes the absolute part tol * max |ref|: GLA's
+    outputs are f32 sums of terms as large as the largest output (dk-long
+    dot products, an in-block scan against ``torch.cumsum``'s scan), which
+    an element-relative bar cannot hold where they cancel."""
     torch.cuda.synchronize()
     tol = TOL[want.dtype]
-    err = (got.float() - want.float()).abs()
+    w = want.float()
+    err = (got.float() - w).abs()
+    atol = tol * float(w.abs().max()) if scaled else tol
     check(bool(torch.isfinite(got.float()).all()), f"{what}: not finite")
-    check(bool((err <= tol + tol * want.float().abs()).all()),
+    check(bool((err <= atol + tol * w.abs()).all()),
           f"{what}: kernel disagrees with plain version: max abs err "
-          f"{float(err.max()):.3e} > tol {tol}")
+          f"{float(err.max()):.3e} > {atol:.3e} + {tol} * |ref|")
     return float(err.max())
 
 
@@ -306,6 +360,7 @@ def kernels_flash():
         (2, 40, 70, 4, 2, 16, True, 16, 30, 16, 16),   # q_offset + window
         (1, 300, 500, 16, 16, 256, True, 0, 200, None, None),  # Gemma width
         gemma,                                         # train_4k, defaults
+        ZAMBA_FLASH,                                   # Zamba2 shared block
     ]
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -338,8 +393,28 @@ def kernels_flash():
           f"sdpa {library_ms:.4f} ms, bound {bound[0]:.4f} ms by "
           f"{bound[1]} ({work[0]} bytes, {work[1]} flops; "
           f"{bound[0] / ms * 100:.2f}% of the bound)")
+    # the Zamba2-1.2B shared block's shape (phase 8's two launches)
+    B, S, SK, H, KV, D = ZAMBA_FLASH[:6]
+    q, k, v = (rnd(g, (B, S, H, D), dtype), rnd(g, (B, SK, KV, D), dtype),
+               rnd(g, (B, SK, KV, D), dtype))
+    z_ms = time_ms(lambda: ops.flash_attention(q, k, v), runs=10)
+    z_plain = time_ms(lambda: attention_ref(q, k, v), runs=5)
+    q4, k4, v4 = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    z_lib = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True), runs=10)
+    work = flash_work(B, S, SK, H, KV, D, q.element_size())
+    z_bound = bound_of(*work)
+    print(f"  zamba2 shared block bf16 (B={B} S={S} H={H} D={D}, causal, "
+          f"default tiles): kernel {z_ms:.4f} ms, plain {z_plain:.4f} ms, "
+          f"sdpa {z_lib:.4f} ms, bound {z_bound[0]:.4f} ms by {z_bound[1]} "
+          f"({work[0]} bytes, {work[1]} flops; "
+          f"{z_bound[0] / z_ms * 100:.2f}% of the bound); max abs err "
+          f"{errs[(ZAMBA_FLASH, dtype)]:.3e}")
     return record("flash_attention", errs[(gemma, dtype)], ms, plain_ms,
                   bound, library_ms)
+
+
+# B, S, SK, H, KV, D, causal, window, q_offset, block_q, block_kv
+ZAMBA_FLASH = (1, 4096, 4096, 32, 32, 64, True, 0, 0, None, None)
 
 
 def kernels_decode():
@@ -433,7 +508,87 @@ def kernels_rmsnorm():
                   bound, library_ms)
 
 
-# Gemma-width shapes for the sweep over each tuning space's configs: the
+def gla_case(g, B, S, H, dk, dv, dtype, shared_qk):
+    """q, k, v and log-gates -|N(0,1)| * 0.3 (the tuning space's); with
+    ``shared_qk`` q and k are one (B, S, dk) row each broadcast over the
+    heads, as Mamba2 passes them."""
+    if shared_qk:
+        rows = rnd(g, (B, S, 2 * dk), dtype)
+        q = rows[:, :, None, :dk].expand(B, S, H, dk)
+        k = rows[:, :, None, dk:].expand(B, S, H, dk)
+    else:
+        q, k = rnd(g, (B, S, H, dk), dtype), rnd(g, (B, S, H, dk), dtype)
+    v = rnd(g, (B, S, H, dv), dtype)
+    log_g = -(torch.randn((B, S, H), generator=g, device=DEV).abs() * 0.3)
+    return q, k, v, log_g
+
+
+def kernels_gla():
+    g = torch.Generator(device=DEV).manual_seed(4)
+    zamba = (1, 4096, 64, 64, 64, 256, True)  # phase 8's 36 launches
+    shapes = [  # B, S, H, dk, dv, chunk, q and k broadcast over heads
+        (1, 16, 1, 4, 4, 8, False),       # the CPU tests' (TestGLA)
+        (2, 64, 3, 8, 16, 16, False),
+        (1, 70, 2, 16, 8, 32, False),     # ragged
+        (2, 128, 4, 32, 32, 64, False),
+        (2, 1000, 4, 64, 32, 256, True),  # ragged at the model's chunk
+        (1, 300, 2, 128, 128, 256, False),  # the largest head it takes
+        (1, 100, 2, 96, 40, 64, False),   # dims no power of two
+        zamba,
+    ]
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in shapes:
+            B, S, H, dk, dv, chunk, shared = shape
+            q, k, v, lg = gla_case(g, B, S, H, dk, dv, dtype, shared)
+            y, st = ops.gla(q, k, v, lg, chunk=chunk)
+            yr, sr = chunked_gla(q, k, v, lg, chunk=chunk)
+            check(y.dtype == v.dtype and st.dtype == torch.float32,
+                  f"gla {shape}: output dtypes {y.dtype}, {st.dtype}")
+            errs[(shape, dtype)] = err = close(y, yr, f"gla {shape} y",
+                                               scaled=True)
+            s_err = close(st, sr, f"gla {shape} final state", scaled=True)
+            print(f"  gla {shape} {str(dtype)[6:]}: max abs err y {err:.3e} "
+                  f"(max |y| {float(yr.float().abs().max()):.3e}), state "
+                  f"{s_err:.3e} (tol {TOL[dtype]} * (max |ref| + |ref|))")
+            del q, k, v, lg, y, st, yr, sr
+    # xLSTM's mLSTM head (dk=512, dv=513 with the ones column): its state
+    # does not fit one block, and the wrapper says so
+    q, k, v, lg = gla_case(g, 1, 16, 2, 512, 513, torch.float32, False)
+    try:
+        ops.gla(q, k, v, lg)
+        check(False, "gla took dk=512, dv=513")
+    except ValueError as e:
+        check("dk=512" in str(e), f"gla dk=512: unclear error {e}")
+        print(f"  gla dk=512, dv=513 rejected: {e}")
+    # no gradient, as gla_pallas has none
+    q, k, v, lg = gla_case(g, 1, 32, 2, 16, 16, torch.float32, False)
+    try:
+        ops.gla(q.requires_grad_(), k, v, lg)
+        check(False, "gla took an input that requires grad")
+    except RuntimeError as e:
+        check("no gradient" in str(e), f"gla requires_grad: unclear {e}")
+        print("  gla on an input that requires grad raises (no gradient)")
+
+    B, S, H, dk, dv, chunk, shared = zamba
+    dtype = torch.float32  # Mamba2's q, k, v after the f32 conv
+    q, k, v, lg = gla_case(g, B, S, H, dk, dv, dtype, shared)
+    ms = time_ms(lambda: ops.gla(q, k, v, lg, chunk=chunk), runs=10)
+    plain_ms = time_ms(lambda: chunked_gla(q, k, v, lg, chunk=chunk), runs=3,
+                       warmup=1)
+    work = gla_work(B, S, H, dk, dv, chunk, q.element_size(), shared)
+    bound = bound_of(*work, flops_per_s=F32_FLOPS_PER_S)
+    print(f"  zamba2 mamba2 shape f32 (B={B} S={S} H={H} dk={dk} dv={dv} "
+          f"chunk {chunk}, q and k broadcast, stride 0): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, no library call, bound {bound[0]:.4f} ms "
+          f"by {bound[1]} ({work[0]} bytes, {work[1]} flops at f32's "
+          f"{F32_FLOPS_PER_S:.3g} flop/s; {bound[0] / ms * 100:.2f}% of the "
+          f"bound); {B * H} blocks for the card's "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+    return record("gla", errs[(zamba, dtype)], ms, plain_ms, bound, None)
+
+
+# Model-width shapes for the sweep over each tuning space's configs: the
 # model's heads and head dim (or d_model), ragged against every tile.
 SWEEP_DIMS = {
     "flash_attention": {"B": 1, "S": 320, "SK": 320, "H": 16, "KV": 16,
@@ -441,6 +596,7 @@ SWEEP_DIMS = {
     "decode_attention": {"B": 2, "S": 1000, "H": 16, "KV": 16, "D": 256},
     "paged_attention": {"B": 2, "S": 1000, "H": 16, "KV": 16, "D": 256},
     "rmsnorm": {"ROWS": 250, "D": 3072},
+    "gla": {"B": 1, "S": 1000, "H": 8, "DK": 64, "DV": 64},  # Zamba2 heads
 }
 
 
@@ -459,6 +615,9 @@ def lib_smem(kernel, cfg, d, dtype):
     if kernel == "paged_attention":
         return pa._lib().repro_paged_smem_bytes(d["H"], d["KV"], d["D"],
                                                 code)
+    if kernel == "gla":
+        return gl._lib().repro_gla_smem_bytes(d["DK"], d["DV"],
+                                              min(cfg["chunk"], d["S"]))
     return max(rn._lib().repro_rmsnorm_smem_bytes(code, code_s, vec)
                for code_s in {0, code} for vec in (0, 1))
 
@@ -492,6 +651,8 @@ def sweep_spaces():
         elif kernel == "paged_attention":
             want = fd.decode_attention_ref(inputs["q"], inputs["k"],
                                            inputs["v"], inputs["kv_len"])
+        elif kernel == "gla":
+            want = chunked_gla(*inputs)[0]
         else:
             want = rmsnorm_ref(*inputs)
         feasible = kernel_feasibility(kernel, dims, "bfloat16",
@@ -500,7 +661,8 @@ def sweep_spaces():
         for cfg in grid:
             if not feasible(cfg):
                 continue
-            err = close(kdef.call(inputs, cfg), want, f"{kernel} {cfg}")
+            err = close(kdef.call(inputs, cfg), want, f"{kernel} {cfg}",
+                        scaled=kernel == "gla")
             worst = max(worst, err)
             n_run += 1
         print(f"  {kernel} space: {len(grid)} configs, shared memory "
@@ -514,7 +676,8 @@ def phase_kernels():
     records = {"paged_flash_decode": kernels_paged(),
                "flash_attention": kernels_flash(),
                "flash_decode": kernels_decode(),
-               "rmsnorm": kernels_rmsnorm()}
+               "rmsnorm": kernels_rmsnorm(),
+               "gla": kernels_gla()}
     sweep_spaces()
     return records
 
@@ -769,7 +932,9 @@ def phase_tune():
     check(rc == 0, f"launch.tune exited {rc}")
     print(f"  launch.tune --tune-kernels (budget {TUNE_BUDGET} a kernel): "
           f"{seconds:.2f} s, launches {launched}")
-    for name in WRAPPERS:
+    # the reference's launcher tunes these four (not gla)
+    for name in ("paged_flash_decode", "flash_attention", "flash_decode",
+                 "rmsnorm"):
         check(launched[name] > 0, f"the tune path never launched {name}")
 
     attn = {"B": 1, "S": seq, "H": cfg.n_heads, "KV": cfg.n_kv_heads,
@@ -813,13 +978,14 @@ def phase_tune():
                                       smem_limit=autotune.smem_limit(DEV))
         space = autotune.KernelSpace(kernel).space()
         grid = {}
+        # one timed call a flash config: each takes 15 to 140 ms
+        grid_runs = 1 if kernel == "flash_attention" else 10
         for vals in itertools.product(*(space[n].choices
                                         for n in space.names)):
             c = dict(zip(space.names, vals))
             if feasible(c):
                 grid[tuple(vals)] = time_ms(lambda: kdef.call(inputs, c),
-                                            runs=3 if runs == 5 else 10,
-                                            warmup=1)
+                                            runs=grid_runs, warmup=1)
         ranked = sorted(grid.values())
         best = min(grid, key=grid.get)
         won = grid[tuple(winner[n] for n in space.names)]
@@ -889,6 +1055,161 @@ def phase_autotune_serve(model, params, prompts, max_new, untuned):
     return launched
 
 
+# ---------------------------------------------------------------------------
+# phase 8: Zamba2-1.2B's forward and LM loss at full width
+# ---------------------------------------------------------------------------
+def profile_forward(fn):
+    """Device time by kernel over one call of ``fn`` under
+    ``torch.profiler``: (device busy ms, {kernel name: ms})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        dt = getattr(e, "self_device_time_total", 0.0)
+        if e.device_type == torch.autograd.DeviceType.CUDA and dt > 0:
+            kernels[e.key] = kernels.get(e.key, 0.0) + dt / 1e3
+    return sum(kernels.values()), kernels
+
+
+def loss_and_hidden(m, params, batch):
+    """``m.loss(params, batch, loss_chunk=1024)`` and the hidden state that
+    its own ``forward`` computed, so one pass gives both."""
+    seen = []
+    forward = m.forward
+    m.forward = lambda *a, **kw: seen.append(forward(*a, **kw)) or seen[-1]
+    try:
+        total, metrics = m.loss(params, batch, loss_chunk=1024)
+    finally:
+        del m.forward
+    return total, metrics, seen[0][0]
+
+
+def phase_zamba():
+    base = get_config("zamba2-1.2b")
+    cfg = replace(base, gla_impl="pallas", attn_impl="pallas")
+    B, S = 1, SHAPES["train_4k"].seq_len  # train_4k's length; batch cut
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = Model(cfg, device=DEV)
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in _leaves(params))
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B, S))
+                              ).to(DEV)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    n_mamba = sum(k == "mamba2" for k in cfg.superblock) * cfg.n_superblocks
+    n_shared = sum(k == "shared" for k in cfg.superblock) * cfg.n_superblocks
+
+    def run_loss(m):
+        return m.loss(params, batch, loss_chunk=1024)
+
+    with torch.no_grad():
+        run_loss(model)  # warm-up: cuBLAS handles, the allocator's pools
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t = time.perf_counter()
+        total, metrics, hidden = loss_and_hidden(model, params, batch)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t) * 1e3
+        launched = counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(launched["gla"] == n_mamba,
+              f"{launched['gla']} GLA launches in one forward, expected "
+              f"{n_mamba} (one a Mamba2 layer)")
+        check(launched["flash_attention"] == n_shared,
+              f"{launched['flash_attention']} flash-attention launches in "
+              f"one forward, expected {n_shared} (one a shared block)")
+        check(all(n == 0 for name, n in launched.items()
+                  if name not in ("gla", "flash_attention")),
+              f"unexpected launches on the forward path: {launched}")
+        busy_ms, kernels = profile_forward(lambda: run_loss(model))
+
+        # one call: the plain path launches no kernel of its own to warm up
+        plain = Model(replace(base, gla_impl="jnp", attn_impl="blocked"),
+                      device=DEV)
+        t = time.perf_counter()
+        p_total, p_metrics, p_hidden = loss_and_hidden(plain, params, batch)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+
+    loss, p_loss = float(metrics["loss"]), float(p_metrics["loss"])
+    check(hidden.shape == (B, S, cfg.d_model)
+          and hidden.dtype == torch.bfloat16,
+          f"hidden {tuple(hidden.shape)} {hidden.dtype}")
+    check(bool(torch.isfinite(hidden.float()).all()) and np.isfinite(loss),
+          "zamba2 forward not finite")
+    check(abs(loss - p_loss) <= ZAMBA_LOSS_TOL,
+          f"loss {loss:.6f} on the kernels vs {p_loss:.6f} on the plain "
+          f"versions (tol {ZAMBA_LOSS_TOL})")
+    rel = float((hidden.float() - p_hidden.float()).norm()
+                / p_hidden.float().norm())
+    check(rel <= ZAMBA_HIDDEN_REL_TOL,
+          f"hidden state relative error {rel:.3e} > {ZAMBA_HIDDEN_REL_TOL}")
+    n_tok = float(metrics["tokens"])
+    check(n_tok == float(p_metrics["tokens"]) == B * S,
+          f"tokens {n_tok} vs {float(p_metrics['tokens'])}")
+    flips = abs(float(metrics["accuracy"]) - float(p_metrics["accuracy"])
+                ) * n_tok
+    check(flips <= ZAMBA_ACC_FLIPS, f"accuracy differs by {flips:.0f} tokens")
+    # f32 at one superblock's depth (19 layers), kernels against plain
+    f32 = dict(n_layers=len(cfg.superblock), param_dtype="float32",
+               compute_dtype="float32")
+    k32 = Model(replace(cfg, **f32), device=DEV)
+    p32 = k32.init(SEED)
+    p32_model = Model(replace(base, gla_impl="jnp", attn_impl="blocked",
+                              **f32), device=DEV)
+    with torch.no_grad():
+        reset_counts()
+        _, m32, h32 = loss_and_hidden(k32, p32, batch)
+        n32 = counts()
+        _, pm32, ph32 = loss_and_hidden(p32_model, p32, batch)
+    l32, pl32 = m32["loss"], pm32["loss"]
+    rel32 = float((h32 - ph32).norm() / ph32.norm())
+    check(n32["gla"] == n_mamba // cfg.n_superblocks
+          and n32["flash_attention"] == n_shared // cfg.n_superblocks,
+          f"f32 superblock launches {n32}")
+    check(rel32 <= ZAMBA_F32_REL_TOL,
+          f"f32 superblock: hidden state relative error {rel32:.3e} > "
+          f"{ZAMBA_F32_REL_TOL}")
+    del k32, p32, p32_model, h32, ph32
+    gla_ms = sum(ms for k, ms in kernels.items() if "gla_kernel" in k)
+    flash_ms = sum(ms for k, ms in kernels.items()
+                   if "flash_attention_kernel" in k)
+    print(f"  zamba2-1.2b bf16 full width: {n_params} params (init "
+          f"{init_s:.2f} s), B={B} S={S}, {cfg.n_layers} layers: {n_mamba} "
+          f"mamba2, {n_shared} shared-block invocations")
+    print(f"  Model.loss (loss_chunk 1024, no grad): {fwd_ms:.4f} ms, peak "
+          f"{peak_gb:.2f} GB, launches {launched}; loss {loss:.6f}, accuracy "
+          f"{float(metrics['accuracy']):.6f}, tokens {n_tok:.0f}")
+    print(f"  plain versions (gla_impl=jnp, attn_impl=blocked): "
+          f"{plain_ms:.4f} ms (one call), loss {p_loss:.6f} (|diff| "
+          f"{abs(loss - p_loss):.3e}, tol {ZAMBA_LOSS_TOL}), accuracy "
+          f"{float(p_metrics['accuracy']):.6f}; hidden state relative error "
+          f"{rel:.3e} (tol {ZAMBA_HIDDEN_REL_TOL})")
+    print(f"  f32, one superblock ({len(cfg.superblock)} layers): hidden "
+          f"state relative error {rel32:.3e} (tol {ZAMBA_F32_REL_TOL}), loss "
+          f"{float(l32):.6f} vs {float(pl32):.6f} plain, launches {n32}")
+    if kernels:
+        print(f"  profiled forward: device busy {busy_ms:.4f} ms, idle share "
+              f"{max(0.0, 1 - busy_ms / fwd_ms):.3f} of the unprofiled "
+              f"{fwd_ms:.4f} ms; GLA kernel {gla_ms:.4f} ms "
+              f"({gla_ms / n_mamba:.4f} a launch), flash kernel "
+              f"{flash_ms:.4f} ms; top kernels (ms):")
+        for key, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"    {ms:.4f}  {key[:100]}")
+    else:
+        print("  device time per kernel: not measured (the profiler saw no "
+              "device events)")
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke runs only on "
@@ -899,14 +1220,18 @@ def main() -> int:
     card = card_line()
     name = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
-    print(f"[1/7] device: {name}; torch {torch.__version__}, "
+
+    def phase(n, what):
+        print(f"[{n}/8] ({time.perf_counter() - t_start:.1f} s) {what}")
+
+    print(f"[1/8] device: {name}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(tmp, "cache.json")
         autotune.reset_default_cache()
         try:
             built = build.build_all(force=True)
-            print("[2/7] build (one nvcc a source, all at once):")
+            phase(2, "build (one nvcc a source, all at once):")
             for src, b in built.items():
                 regs = [int(w) for line in b.log.splitlines()
                         if "registers" in line
@@ -920,21 +1245,26 @@ def main() -> int:
                       f"{len(spills)} with spills or stack")
                 for line in spills:
                     print(f"    {line}")
-            print("[3/7] kernels against their plain versions")
+            phase(3, "kernels against their plain versions")
             records = phase_kernels()
-            print("[4/7] port on the card against the port on the cpu")
+            phase(4, "port on the card against the port on the cpu")
             phase_parity()
-            print("[5/7] gemma-7b at full width (slice 1's main path)")
+            phase(5, "gemma-7b at full width (slice 1's main path)")
             model, params, prompts, max_new, res, launches = phase_serve()
             records["paged_flash_decode"]["launches"] = launches
-            print("[6/7] launch.tune --tune-kernels at gemma-7b width "
+            phase(6, "launch.tune --tune-kernels at gemma-7b width "
                   "(slice 2's main path)")
             tuned = phase_tune()
             for name_ in ("flash_attention", "flash_decode", "rmsnorm"):
                 records[name_]["launches"] = tuned[name_]
-            print("[7/7] gemma-7b served with autotune_kernels on that "
+            phase(7, "gemma-7b served with autotune_kernels on that "
                   "cache")
             phase_autotune_serve(model, params, prompts, max_new, res)
+            del model, params
+            torch.cuda.empty_cache()
+            phase(8, "zamba2-1.2b forward and loss at full width "
+                  "(slice 3's main path)")
+            records["gla"]["launches"] = phase_zamba()["gla"]
         except PhaseError as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1

@@ -14,7 +14,8 @@ shared-memory footprint.
 
 The cost model (``mode="model"``, what the CPU tests run) scores a config
 by a Hopper roofline at the H100 SXM datasheet figures (3.35 TB/s HBM,
-989 TFLOP/s dense bf16) plus a scheduling term per wave of blocks.  Its
+989 TFLOP/s dense bf16; 67 TFLOP/s f32 for the GLA kernel, which runs on
+the CUDA cores) plus a scheduling term per wave of blocks.  Its
 only ``inf`` is a block whose shared memory exceeds the opt-in maximum
 per block; ``smem_footprint`` is the single function behind that and
 behind the ``smem_fits`` feasibility predicate
@@ -38,6 +39,7 @@ __all__ = ["KernelSpace", "KERNELS", "shape_sig", "SMEM_PER_BLOCK_OPTIN"]
 # H100 SXM (NVIDIA data sheet; the hopper-kernels guide's table)
 HBM_BYTES_PER_S = 3.35e12
 TENSOR_FLOPS_PER_S = 989e12  # dense bf16
+CUDA_CORE_F32_FLOPS_PER_S = 67e12  # f32 outside the tensor cores
 SM_COUNT = 132
 SMEM_PER_BLOCK_OPTIN = 232_448  # 227 KB a block may opt in to
 SMEM_PER_SM = 233_472           # 228 KB shared memory on an SM
@@ -62,7 +64,8 @@ def _torch_dtype(dtype: str) -> torch.dtype:
 
 
 def _roofline_s(flops: float, hbm_bytes: float, n_blocks: float,
-                warps: int, smem: int) -> float:
+                warps: int, smem: int,
+                flops_per_s: float = TENSOR_FLOPS_PER_S) -> float:
     """Roofline time plus the scheduling term of the blocks' waves; inf
     when a block's shared memory does not fit."""
     if smem > SMEM_PER_BLOCK_OPTIN:
@@ -71,7 +74,7 @@ def _roofline_s(flops: float, hbm_bytes: float, n_blocks: float,
     if smem:
         resident = min(resident, SMEM_PER_SM // smem)
     waves = math.ceil(n_blocks / (SM_COUNT * max(resident, 1)))
-    compute = flops / TENSOR_FLOPS_PER_S
+    compute = flops / flops_per_s
     stream = hbm_bytes / HBM_BYTES_PER_S
     return max(compute, stream) + waves * WAVE_S * (1.0 + 2.0 / warps)
 
@@ -338,6 +341,66 @@ def _rn_cost(config, d, dtype):
                        _rn_smem(config, d, dtype))
 
 
+# -- gated linear attention -------------------------------------------------
+# a block walks its chunks in order: each chunk costs the scan's and the
+# sub-tiles' barriers whatever its length
+GLA_CHUNK_STEP_S = 1e-6
+
+
+def _gla_space() -> ParameterSpace:
+    return ParameterSpace([
+        EnumParam("chunk", (16, 32, 64, 128, 256), 128),
+        EnumParam("num_warps", (0, 2, 4, 8, 16), 0),
+    ])
+
+
+def _gla_inputs(d, dtype, rng, device):
+    q = _rand(rng, (d["B"], d["S"], d["H"], d["DK"]), dtype, device)
+    k = _rand(rng, (d["B"], d["S"], d["H"], d["DK"]), dtype, device)
+    v = _rand(rng, (d["B"], d["S"], d["H"], d["DV"]), dtype, device)
+    g = torch.from_numpy(
+        (-np.abs(rng.normal(size=(d["B"], d["S"], d["H"]))) * 0.3)
+        .astype(np.float32)).to(device)
+    return q, k, v, g
+
+
+def _gla_call(inputs, config):
+    from repro_torch.kernels.gla import gla_cuda
+
+    q, k, v, g = inputs
+    return gla_cuda(q, k, v, g, chunk=config["chunk"],
+                    num_warps=config["num_warps"])[0]
+
+
+def _gla_smem(config, d, dtype):
+    from repro_torch.kernels.gla import smem_bytes
+
+    return smem_bytes(d["DK"], d["DV"], min(config["chunk"], d["S"]))
+
+
+def _gla_cost(config, d, dtype):
+    from repro_torch.kernels.gla import SUB_TILE
+
+    B, S, H, DK, DV = d["B"], d["S"], d["H"], d["DK"], d["DV"]
+    L = min(config["chunk"], S)
+    nc = math.ceil(S / L)
+    nt = math.ceil(L / min(SUB_TILE, L))
+    ts = min(SUB_TILE, L)
+    # per chunk: the (query, key) sub-tile pairs up to the diagonal, each
+    # a score tile and its product with v, plus the inter-chunk term and
+    # the state update (2 * L * DK * DV each), f32 on the CUDA cores
+    flops = B * H * nc * (nt * (nt + 1) / 2 * 2.0 * ts * ts * (DK + DV)
+                          + 4.0 * L * DK * DV)
+    ib = _dtype_bytes(dtype)
+    hbm = (B * S * H * (2 * DK + 2 * DV) * ib  # q, k, v in, y out
+           + B * S * H * 4.0                   # the gates
+           + B * H * DK * DV * 4.0)            # the final state
+    return (_roofline_s(flops, hbm, B * H, _warps(config, 16),
+                        _gla_smem(config, d, dtype),
+                        flops_per_s=CUDA_CORE_F32_FLOPS_PER_S)
+            + nc * GLA_CHUNK_STEP_S)
+
+
 KERNELS: Dict[str, KernelDef] = {
     # SK = KV sequence length; distinct from S so cross-attention and
     # cache-prefill problems key separate autotune entries.
@@ -357,6 +420,10 @@ KERNELS: Dict[str, KernelDef] = {
         "rmsnorm", ("ROWS", "D"),
         ("block_rows", "num_warps"),
         _rn_space, _rn_inputs, _rn_call, _rn_cost, _rn_smem),
+    "gla": KernelDef(
+        "gla", ("B", "S", "H", "DK", "DV"),
+        ("chunk", "num_warps"),
+        _gla_space, _gla_inputs, _gla_call, _gla_cost, _gla_smem),
 }
 
 

@@ -2,9 +2,11 @@
 (``--arch <id>``), the workload ``SHAPES`` and the ``reduced()`` transform
 used by CPU tests.
 
-Own copy of ``repro.configs`` cut to what the ported slice reads: dense
+Own copy of ``repro.configs`` cut to what the ported slices read:
 decoder-only stacks of ``attn`` blocks (GQA self-attention with RoPE and
-a gated MLP, tied embeddings).  Fields of the reference schema that only
+a gated or GELU MLP, tied embeddings) and the Mamba2 hybrid (``mamba2``
+blocks and invocations of one weight-shared ``shared`` attention+MLP
+block, as Zamba2 has them).  Fields of the reference schema that only
 other block kinds, sharding or the dry-run read are left out; they come
 back with the slices that port those paths.
 """
@@ -21,7 +23,7 @@ __all__ = ["ModelConfig", "ShapeSpec", "SHAPES", "get_config",
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense (the only family of this slice)
+    family: str  # dense | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -30,14 +32,26 @@ class ModelConfig:
     vocab_size: int
     head_dim: Optional[int] = None  # defaults to d_model // n_heads
     superblock: Tuple[str, ...] = ("attn",)
-    activation: str = "swiglu"  # swiglu | geglu
+    activation: str = "swiglu"  # swiglu | geglu | gelu
     rope_theta: float = 10_000.0
+    # SSM (mamba2)
+    ssm_state: int = 0
+    ssm_heads: int = 0
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_chunk: int = 256
+    gla_impl: str = "jnp"  # jnp | pallas (the CUDA GLA kernel)
     # numerics
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     vocab_pad_multiple: int = 256
+    # attention implementation: dense | blocked | local | auto | pallas
+    # (pallas = the CUDA flash-attention kernel)
+    attn_impl: str = "auto"
+    attn_block_q: int = 512
+    attn_block_kv: int = 1024
     notes: str = ""
 
     # ---- derived ----
@@ -76,7 +90,7 @@ SHAPES: Dict[str, ShapeSpec] = {
 }
 
 _REGISTRY: Dict[str, ModelConfig] = {}
-_MODULES = ("gemma_7b",)
+_MODULES = ("gemma_7b", "zamba2_1_2b")
 
 
 def register(cfg: ModelConfig) -> ModelConfig:
@@ -120,7 +134,12 @@ def reduced(cfg: ModelConfig, seed_width: int = 64) -> ModelConfig:
         head_dim=16,
         d_ff=seed_width * 2 if cfg.d_ff else 0,
         vocab_size=512,
+        ssm_state=min(cfg.ssm_state, 16) if cfg.ssm_state else 0,
+        ssm_heads=min(cfg.ssm_heads, 4) if cfg.ssm_heads else 0,
+        ssm_chunk=16,
         param_dtype="float32",
         compute_dtype="float32",
         vocab_pad_multiple=64,
+        attn_block_q=16,
+        attn_block_kv=32,
     )

@@ -33,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # every kernel source of the port, one library each
 SOURCES = ("paged_attention", "flash_attention", "decode_attention",
-           "rmsnorm")
+           "rmsnorm", "gla")
 # the dtype argument of every kernel's C interface
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

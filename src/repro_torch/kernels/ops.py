@@ -23,11 +23,12 @@ from repro_torch import autotune
 
 from .decode_attention import flash_decode_cuda
 from .flash_attention import flash_attention_cuda
+from .gla import gla_cuda
 from .paged_attention import paged_flash_decode_cuda
 from .rmsnorm import rmsnorm_cuda
 
 __all__ = ["flash_attention", "flash_decode", "paged_flash_decode",
-           "rmsnorm", "DEFAULT_BLOCKS"]
+           "rmsnorm", "gla", "DEFAULT_BLOCKS"]
 
 # num_warps 0 leaves the CUDA block size to each kernel's launcher, which
 # takes the most warps the kernel's registers allow (bounded by the
@@ -40,6 +41,7 @@ DEFAULT_BLOCKS: Dict[str, Dict[str, Any]] = {
     "decode_attention": {"block_kv": 256, "num_warps": 0},
     "paged_attention": {"pages_per_block": 4, "num_warps": 0},
     "rmsnorm": {"block_rows": 4, "num_warps": 0},
+    "gla": {"chunk": 128, "num_warps": 0},
 }
 
 _memo: Dict[Tuple, Dict[str, Any]] = {}
@@ -117,6 +119,19 @@ def rmsnorm(x, scale, *, eps: float = 1e-6,
                       {"block_rows": block_rows, "num_warps": num_warps})
     return rmsnorm_cuda(x, scale, eps=eps, block_rows=blocks["block_rows"],
                         num_warps=blocks["num_warps"])
+
+
+def gla(q, k, v, log_g, *, chunk: Optional[int] = None,
+        num_warps: Optional[int] = None):
+    """Chunked gated linear attention from a zero state: q and k
+    (B, S, H, dk), v (B, S, H, dv), log_g (B, S, H) -> (y (B, S, H, dv) in
+    v's dtype, final state (B, H, dk, dv) f32)."""
+    B, S, H, dk = q.shape
+    blocks = _resolve("gla", {"B": B, "S": S, "H": H, "DK": dk,
+                              "DV": v.shape[-1]}, q.dtype, q.device,
+                      {"chunk": chunk, "num_warps": num_warps})
+    return gla_cuda(q, k, v, log_g, chunk=blocks["chunk"],
+                    num_warps=blocks["num_warps"])
 
 
 def flash_decode(q, k, v, kv_len, *, block_kv: Optional[int] = None,

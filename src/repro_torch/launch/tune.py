@@ -45,7 +45,9 @@ def tune_kernels(arch: str, shape: str, budget: int, seed: int = 0,
     rn_dims = {"ROWS": seq, "D": cfg.d_model}
     results = []
     # paged_attention shares the decode signature: its winner seeds the
-    # continuous engine's pool layout (pages_per_block -> group size)
+    # continuous engine's pool layout (pages_per_block -> group size).
+    # gla is not tuned here, as the reference's launcher does not tune it
+    # (the Mamba2 path passes its chunk explicitly)
     for kernel, dims in (("flash_attention", fa_dims),
                          ("decode_attention", attn_dims),
                          ("paged_attention", attn_dims),

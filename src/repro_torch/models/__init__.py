@@ -1,4 +1,5 @@
-"""PyTorch model stack for the serve paths (``attn`` superblocks)."""
+"""PyTorch model stack: ``attn`` stacks (forward, loss and the serve
+paths) and the Mamba2 hybrid (forward and loss)."""
 from .transformer import Model
 
 __all__ = ["Model"]

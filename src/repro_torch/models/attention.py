@@ -1,8 +1,13 @@
-"""GQA self-attention with RoPE over a KV cache, for the serve paths.
+"""GQA self-attention with RoPE, with and without a KV cache.
 
-Counterpart of ``repro.models.attention`` on the paths the paged
-continuous engine runs:
+Counterpart of ``repro.models.attention`` on these paths:
 
+* cache-free full-sequence attention (``Model.forward`` / ``loss``),
+  through ``attend`` with the reference's inner implementations:
+  ``dense`` (materialized logits), ``blocked`` (flash-style online
+  softmax over KV blocks in plain PyTorch), ``pallas`` (the CUDA
+  flash-attention kernel, ``kernels.ops.flash_attention``) and ``auto``
+  (the reference's rules choosing among them);
 * the scalar-``cache_index`` cache path (chunked prefill): append the
   chunk's K/V into a dense cache view, then dense causal attention
   (``attend(impl="dense")``);
@@ -11,9 +16,9 @@ continuous engine runs:
   (``kernels.ops.paged_flash_decode``).
 
 Unlike the reference, whose arrays are immutable, the cache tensors are
-updated in place; the returned cache is the same dict.  Cache-free
-(training) attention, the vector-``cache_index`` dense layout, sliding
-windows, speculative verify and cross-attention are later slices and
+updated in place; the returned cache is the same dict.  The banded
+``local`` implementation (sliding windows), the vector-``cache_index``
+dense layout, speculative verify and cross-attention are later slices and
 raise ``NotImplementedError``.  All softmax math runs in f32.
 """
 from __future__ import annotations
@@ -22,6 +27,7 @@ import math
 from typing import Dict, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels import ops
@@ -99,19 +105,94 @@ def _dense_attend(q, k, v, *, causal: bool, window: int,
     return _gqa_out(weights, v).to(v.dtype)
 
 
+def _blocked_attend(q, k, v, *, causal: bool, block_q: int, block_kv: int,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Flash-style two-level loop: memory O(block_q x block_kv).  Every KV
+    block is visited (masked ones too), as in the reference's scan."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    dev = q.device
+    pad_q = (-Sq) % block_q
+    pad_k = (-Sk) % block_kv
+    qp = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    kp = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+    vp = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+    nq, nk = qp.shape[1] // block_q, kp.shape[1] // block_kv
+    qb = qp.reshape(B, nq, block_q, KV, G, D).float() / math.sqrt(D)
+    kb = kp.reshape(B, nk, block_kv, KV, D).float()
+    vb = vp.reshape(B, nk, block_kv, KV, D).float()
+
+    qpos = (q_offset + torch.arange(nq * block_q, device=dev)).reshape(
+        nq, block_q)
+    kpos = torch.arange(nk * block_kv, device=dev).reshape(nk, block_kv)
+    kvalid = (torch.arange(nk * block_kv, device=dev) < Sk).reshape(
+        nk, block_kv)
+
+    outs = []
+    for qi in range(nq):
+        qblk, qp_blk = qb[:, qi], qpos[qi]  # (B, bq, KV, G, D), (bq,)
+        m = torch.full((B, KV, G, block_q), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, KV, G, block_q), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, KV, G, block_q, D), dtype=torch.float32,
+                          device=dev)
+        for ki in range(nk):
+            logits = torch.einsum("bqkgd,bskd->bkgqs", qblk, kb[:, ki])
+            mask = kvalid[ki][None, :]
+            if causal:
+                mask = mask & (kpos[ki][None, :] <= qp_blk[:, None])
+            logits = logits.masked_fill(~mask[None, None, None], NEG_INF)
+            new_m = torch.maximum(m, logits.amax(-1))
+            scale = torch.exp(m - new_m)
+            p = torch.exp(logits - new_m[..., None])
+            l = l * scale + p.sum(-1)
+            acc = acc * scale[..., None] + torch.einsum(
+                "bkgqs,bskd->bkgqd", p, vb[:, ki])
+            m = new_m
+        out = acc / torch.clamp(l, min=1e-30)[..., None]  # (B,KV,G,bq,D)
+        outs.append(out.permute(0, 3, 1, 2, 4))  # (B, bq, KV, G, D)
+    out = torch.stack(outs, dim=1).reshape(B, nq * block_q, H, D)
+    return out[:, :Sq].to(v.dtype)
+
+
 def attend(q, k, v, *, cfg: ModelConfig, causal: bool = True,
            window: int = 0, impl: Optional[str] = None,
            q_offset: Union[int, torch.Tensor] = 0,
            kv_len: Optional[Union[int, torch.Tensor]] = None
            ) -> torch.Tensor:
-    """Dispatch to an inner attention implementation (``dense`` only in
-    this slice; the reference's blocked/local/flash paths are later)."""
-    if impl != "dense":
+    """Dispatch to an inner attention implementation: ``impl`` or else
+    ``cfg.attn_impl``, with the reference's ``auto`` rules."""
+    impl = impl or cfg.attn_impl
+    Sq, Sk = q.shape[1], k.shape[1]
+    if window and causal and Sq == Sk and Sk <= window:
+        window = 0  # the window covers the whole causal context: no-op
+    if impl == "auto":
+        if Sq == 1 or kv_len is not None:
+            impl = "dense"  # decode: one query row, einsum over the cache
+        elif window and causal and Sq == Sk and Sk > 2 * window:
+            impl = "local"
+        elif Sk >= 2 * cfg.attn_block_kv:
+            impl = "blocked"
+        else:
+            impl = "dense"
+    if impl == "pallas":
+        return ops.flash_attention(q, k, v, causal=causal, window=window)
+    if impl == "local":
         raise NotImplementedError(
-            f"attention impl {impl!r}: only 'dense' is ported (the flash "
-            "attention kernel is ROADMAP queue 2, item 2)")
-    return _dense_attend(q, k, v, causal=causal, window=window,
-                         q_offset=q_offset, kv_len=kv_len)
+            "attention impl 'local' (banded sliding-window attention) is "
+            "not ported (ROADMAP queue 1, item 7)")
+    if impl == "blocked":
+        if window:  # blocked path is exact only without a window
+            raise ValueError("blocked impl does not support sliding window")
+        return _blocked_attend(q, k, v, causal=causal,
+                               block_q=cfg.attn_block_q,
+                               block_kv=cfg.attn_block_kv,
+                               q_offset=q_offset)
+    if impl == "dense":
+        return _dense_attend(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset, kv_len=kv_len)
+    raise ValueError(f"unknown attention impl {impl!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -138,28 +219,27 @@ def self_attention(
     cache_index: Union[int, torch.Tensor, None] = None,  # int or (B,)
     page_table: Optional[torch.Tensor] = None,  # (B, MAXG) int32
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Causal self-attention that appends ``x``'s K/V to ``cache``.
+    """Causal self-attention; appends ``x``'s K/V to ``cache`` when one is
+    given.
 
-    With ``page_table`` the cache is a (groups, group_tokens, KV, D) pool
-    and ``cache_index`` a (B,) vector: every slot appends its single token
-    at its own position through its table row, then attends with the
-    paged decode kernel.  With an int ``cache_index`` the cache is a
+    Without a cache: full-sequence (forward / train) attention through
+    ``attend`` with ``cfg.attn_impl``; the cache returned is None.  With ``page_table`` the cache is a (groups, group_tokens, KV,
+    D) pool and ``cache_index`` a (B,) vector: every slot appends its
+    single token at its own position through its table row, then attends
+    with the paged decode kernel.  With an int ``cache_index`` the cache is a
     dense (B, S, KV, D) buffer: the chunk lands at ``cache_index`` and
     attends causally over the first ``cache_index + S`` positions.
     """
-    if cache is None:
-        raise NotImplementedError(
-            "cache-free attention (forward/train) is not ported "
-            "(ROADMAP queue 1, items 1 and 6)")
     q, k, v = _project_qkv(params, x, cfg)
     cos, sin = rope_freqs(positions, cfg.head_dim_, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    ck, cv = cache["k"], cache["v"]
-    S_new = k.shape[1]
-    if page_table is not None:
-        if S_new != 1:
+    if cache is None:
+        y = attend(q, k, v, cfg=cfg)
+    elif page_table is not None:
+        ck, cv = cache["k"], cache["v"]
+        if k.shape[1] != 1:
             raise NotImplementedError(
                 "multi-token paged append (speculative verify) is not "
                 "ported (ROADMAP queue 1, item 3)")
@@ -177,6 +257,8 @@ def self_attention(
             raise NotImplementedError(
                 "per-slot cache_index on a dense cache (the dense "
                 "continuous layout) is not ported (ROADMAP queue 1, item 3)")
+        ck, cv = cache["k"], cache["v"]
+        S_new = k.shape[1]
         ck[:, cache_index:cache_index + S_new] = k.to(ck.dtype)
         cv[:, cache_index:cache_index + S_new] = v.to(cv.dtype)
         y = attend(q, ck, cv, cfg=cfg, causal=True, window=0, impl="dense",

@@ -1,6 +1,7 @@
-"""Dense gated MLP: SwiGLU (llama-family) and GeGLU (gemma).
+"""Dense MLP variants: SwiGLU (llama-family), GeGLU (gemma), GELU
+(Zamba2's shared block).
 
-Counterpart of ``repro.models.mlp`` for the gated activations.
+Counterpart of ``repro.models.mlp``.
 """
 from __future__ import annotations
 
@@ -17,11 +18,14 @@ __all__ = ["mlp_defs", "mlp"]
 
 def mlp_defs(cfg: ModelConfig):
     """{name: (shape, init)} for one block's MLP weights."""
-    if cfg.activation not in ("swiglu", "geglu"):
+    if cfg.activation not in ("swiglu", "geglu", "gelu"):
         raise NotImplementedError(
-            f"activation {cfg.activation!r}: only the gated MLPs (swiglu, "
-            "geglu) are ported (ROADMAP queue 1, item 7)")
+            f"activation {cfg.activation!r}: only swiglu, geglu and gelu "
+            "are ported (ROADMAP queue 1, item 7)")
     d, ff = cfg.d_model, cfg.d_ff
+    if cfg.activation == "gelu":  # non-gated
+        return {"wi": ((d, ff), fan_in_init(0)),
+                "wo": ((ff, d), fan_in_init(0))}
     return {
         "wi": ((d, ff), fan_in_init(0)),
         "wg": ((d, ff), fan_in_init(0)),
@@ -42,6 +46,9 @@ def mlp(params: Dict[str, torch.Tensor], x: torch.Tensor,
     cdt = dtype_of(cfg.compute_dtype)
     x = x.to(cdt)
     h = x @ params["wi"].to(cdt)
-    g = x @ params["wg"].to(cdt)
-    h = _act(cfg.activation, g) * h
+    if "wg" in params:
+        g = x @ params["wg"].to(cdt)
+        h = _act(cfg.activation, g) * h
+    else:
+        h = _act(cfg.activation, h)
     return h @ params["wo"].to(cdt)

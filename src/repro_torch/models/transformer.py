@@ -1,18 +1,26 @@
-"""Model assembly for the serve paths: embeddings, the ``attn`` block
-stack, tied logits, chunked prefill and paged continuous-batching decode.
+"""Model assembly: embeddings, the block stack, tied logits, the
+full-sequence forward and LM loss, chunked prefill and paged
+continuous-batching decode.
 
-Counterpart of ``repro.models.transformer`` for ``superblock=("attn",)``
-stacks.  The reference scans over parameters stacked along a leading
-layer axis; PyTorch runs eagerly, so here the layers are a plain list of
-per-layer dicts and the stack is a Python loop.  ``models.bridge`` turns
-the reference's stacked pytree into this layout.
+Counterpart of ``repro.models.transformer`` for stacks of ``attn``,
+``mamba2`` and ``shared`` blocks (Gemma-7B; Zamba2-1.2B's
+``9×mamba2 + shared + 9×mamba2`` superblock).  The reference scans over
+parameters stacked along a leading layer axis; PyTorch runs eagerly, so
+here the layers are a plain list of per-layer dicts (layer
+``sb * len(superblock) + i`` has kind ``superblock[i]``) and the stack
+is a Python loop.  ``models.bridge`` turns the reference's stacked
+pytree into this layout.  ``forward`` and ``loss`` run every kind; the
+serve methods run ``attn`` stacks only.
 
 Parameters::
 
     {"embed": (V_pad, d),
      "blocks": [{"ln1": (d,), "attn": {"wq", "wk", "wv", "wo"},
-                 "ln2": (d,), "mlp": {"wi", "wg", "wo"}}, ...],
-     "final_norm": (d,)}
+                 "ln2": (d,), "mlp": {"wi", ["wg",] "wo"}}      # attn
+                or {"ln1": (d,), "mixer": {...}}                # mamba2
+                or {}, ...],                                    # shared
+     "final_norm": (d,),
+     ["shared": {"ln1", "attn", "ln2", "mlp"}]}  # the one shared block
 
 Caches hold ``{"blocks": [{"k", "v"}, ...]}`` per layer: dense
 (B, S, KV, D) buffers for chunked prefill (plus an int ``"index"``), or
@@ -21,17 +29,56 @@ Caches hold ``{"blocks": [{"k", "v"}, ...]}`` per layer: dense
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Union
+from typing import Any, Dict, List, Tuple, Union
 
 import torch
 
 from repro_torch.configs import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (dtype_of, normal_init, ones_init,
                                        resolve_device, rms_norm)
 
 __all__ = ["Model"]
+
+KINDS = ("attn", "mamba2", "shared")
+
+
+def _apply_block_full(kind: str, p: Dict[str, Any], x: torch.Tensor,
+                      ctx: Dict[str, Any], cfg: ModelConfig
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence (train / prefill-without-cache) application."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "shared":
+        p = ctx["shared_params"]
+        kind = "attn"
+    if kind == "attn":
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        y, _ = attn_mod.self_attention(p["attn"], h, cfg=cfg,
+                                       positions=ctx["positions"])
+        x = x + y
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + mlp_mod.mlp(p["mlp"], h, cfg), aux
+    if kind == "mamba2":
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        return x + ssm_mod.mamba2_block(p["mixer"], h, cfg), aux
+    raise ValueError(f"unknown block kind {kind!r}")
+
+
+def _stack_forward(blocks_params: List[Dict[str, Any]], x: torch.Tensor,
+                   ctx: Dict[str, Any], cfg: ModelConfig,
+                   remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
+    if remat != "none":
+        raise NotImplementedError(
+            f"remat={remat!r}: rematerialization comes with the train step "
+            "(ROADMAP queue 1, item 6)")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    n = len(cfg.superblock)
+    for i, p in enumerate(blocks_params):
+        x, a = _apply_block_full(cfg.superblock[i % n], p, x, ctx, cfg)
+        aux = aux + a
+    return x, aux
 
 
 def _apply_block_decode(p: Dict[str, Any], x: torch.Tensor,
@@ -65,9 +112,9 @@ class Model:
 
     def __init__(self, cfg: ModelConfig,
                  device: Union[str, torch.device] = "cuda"):
-        if any(kind != "attn" for kind in cfg.superblock):
+        if any(kind not in KINDS for kind in cfg.superblock):
             raise NotImplementedError(
-                f"superblock {cfg.superblock}: only 'attn' blocks are "
+                f"superblock {cfg.superblock}: only {KINDS} blocks are "
                 "ported (ROADMAP queue 1, item 7)")
         if not cfg.tie_embeddings:
             raise NotImplementedError(
@@ -88,20 +135,35 @@ class Model:
         d = cfg.d_model
 
         def make(defs):
-            return {name: init(gen, shape, pdt, dev)
-                    for name, (shape, init) in defs.items()}
+            # (shape, init) in the param dtype, or (shape, init, dtype)
+            return {name: init(gen, shape, (dt and dt[0]) or pdt, dev)
+                    for name, (shape, init, *dt) in defs.items()}
 
         def norm():
             return ones_init()(gen, (d,), torch.float32, dev)
 
-        blocks = [{"ln1": norm(), "attn": make(attn_mod.attention_defs(cfg)),
-                   "ln2": norm(), "mlp": make(mlp_mod.mlp_defs(cfg))}
-                  for _ in range(cfg.n_layers)]
-        return {
+        def attn_block():
+            return {"ln1": norm(), "attn": make(attn_mod.attention_defs(cfg)),
+                    "ln2": norm(), "mlp": make(mlp_mod.mlp_defs(cfg))}
+
+        blocks = []
+        for i in range(cfg.n_layers):
+            kind = cfg.superblock[i % len(cfg.superblock)]
+            if kind == "attn":
+                blocks.append(attn_block())
+            elif kind == "mamba2":
+                blocks.append({"ln1": norm(),
+                               "mixer": make(ssm_mod.mamba2_defs(cfg))})
+            else:  # shared: the weights live at the top level
+                blocks.append({})
+        params = {
             "embed": normal_init(0.02)(gen, (cfg.padded_vocab, d), pdt, dev),
             "blocks": blocks,
             "final_norm": norm(),
         }
+        if "shared" in cfg.superblock:
+            params["shared"] = attn_block()
+        return params
 
     # --- embedding / head -------------------------------------------------
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
@@ -116,6 +178,67 @@ class Model:
         cdt = dtype_of(self.cfg.compute_dtype)
         return x.to(cdt) @ params["embed"].to(cdt).T  # tied (V, d)
 
+    # --- full-sequence forward (train) -----------------------------------
+    def forward(self, params, batch, *, remat: str = "none"):
+        """batch: tokens (B, S) -> (hidden (B, S, d) after the final norm,
+        aux_loss)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        S = tokens.shape[1]
+        x = self._embed(params, tokens)
+        ctx = {"positions": torch.arange(S, device=x.device),
+               "shared_params": params.get("shared")}
+        x, aux = _stack_forward(params["blocks"], x, ctx, cfg, remat=remat)
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+    def loss(self, params, batch, *, remat: str = "none",
+             loss_chunk: int = 0, aux_weight: float = 0.01):
+        """Causal LM loss over the true vocabulary (padded logits masked to
+        -1e30).  ``loss_chunk > 0`` computes the cross-entropy in sequence
+        chunks, so the full (B, S, V) logits never materialize.  Returns
+        (total, {"loss", "aux_loss", "accuracy", "tokens"})."""
+        cfg = self.cfg
+        x, aux = self.forward(params, batch, remat=remat)
+        labels = batch["labels"].long()
+        mask = batch.get("loss_mask")
+        mask = ((labels >= 0).float() if mask is None else mask.float())
+        labels = labels.clamp(min=0)
+        vocab_valid = (torch.arange(cfg.padded_vocab, device=x.device)
+                       < cfg.vocab_size)
+
+        def chunk_loss(x_c, labels_c, mask_c):
+            logits = self._logits(params, x_c)
+            logits = logits.masked_fill(~vocab_valid, -1e30)
+            lg = logits.float()
+            logz = torch.logsumexp(lg, dim=-1)
+            gold = torch.gather(lg, -1, labels_c[..., None])[..., 0]
+            nll = (logz - gold) * mask_c
+            acc = (lg.argmax(-1) == labels_c).float() * mask_c
+            return nll.sum(), acc.sum()
+
+        S = x.shape[1]
+        if loss_chunk and S > loss_chunk and S % loss_chunk == 0:
+            nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+            acc_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+            for c0 in range(0, S, loss_chunk):
+                sl = slice(c0, c0 + loss_chunk)
+                nll, acc = chunk_loss(x[:, sl], labels[:, sl], mask[:, sl])
+                nll_sum = nll_sum + nll
+                acc_sum = acc_sum + acc
+        else:
+            nll_sum, acc_sum = chunk_loss(x, labels, mask)
+        denom = torch.clamp(mask.sum(), min=1.0)
+        loss = nll_sum / denom
+        total = loss + aux_weight * aux
+        return total, {"loss": loss, "aux_loss": aux,
+                       "accuracy": acc_sum / denom, "tokens": denom}
+
+    def _serve_guard(self) -> None:
+        if any(kind != "attn" for kind in self.cfg.superblock):
+            raise NotImplementedError(
+                f"serving superblock {self.cfg.superblock}: the serve paths "
+                "run 'attn' stacks only (ROADMAP queue 1, item 7)")
+
     # --- chunked prefill --------------------------------------------------
     def prefill_chunk(self, params, batch, cache):
         """Append one prompt segment to dense KV caches (chunked prefill).
@@ -125,6 +248,7 @@ class Model:
         (last-token logits, cache) with the cache updated in place and its
         index advanced by C.
         """
+        self._serve_guard()
         cfg = self.cfg
         tokens = batch["tokens"]
         C = tokens.shape[1]
@@ -144,6 +268,7 @@ class Model:
         (n_groups, group_tokens, KV, D) pools per layer.  The page table
         and per-slot lengths live with the engine; group 0 is the
         allocator's scratch group (idle decode lanes write there)."""
+        self._serve_guard()
         cfg = self.cfg
         shape = (n_groups, group_tokens, cfg.n_kv_heads, cfg.head_dim_)
         dt = dtype_of(cfg.compute_dtype)
@@ -162,6 +287,7 @@ class Model:
         too (their page rows point at the scratch group and the engine
         discards their outputs).  Returns (logits (B, 1, V_pad), cache).
         """
+        self._serve_guard()
         cfg = self.cfg
         C = tokens.shape[1]
         if C != 1:

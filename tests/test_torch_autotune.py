@@ -4,7 +4,9 @@ launcher), on the CPU with the Hopper cost model.
 
 * Over the whole knob grid of every port ``KernelSpace``, at the
   Gemma-7B dims and at the CPU tests' dims: feasible ⇔ finite cost, and
-  the default config is feasible.
+  the default config is feasible; the gla space is the reference's
+  (chunk choices, default, dims) and infeasible exactly where a head's
+  state does not fit a block.
 * The cache key format is the reference's; an entry either package
   writes to one file the other reads back; the backend component keeps
   ``cpu``, ``tpu`` and ``cuda-sm90`` entries apart.
@@ -13,6 +15,7 @@ launcher), on the CPU with the Hopper cost model.
 * ``python -m repro_torch.launch.tune --tune-kernels --device cpu``
   persists the four kernels' entries under backend ``cpu``.
 """
+import dataclasses
 import itertools
 import json
 import math
@@ -28,12 +31,15 @@ from repro_torch.kernels import ops
 
 torch.set_num_threads(1)
 
+# DK and DV are the GLA kernel's head dims (Zamba2's 64 at the model
+# shapes; the largest the kernel takes at the serve shape); the other
+# kernels ignore them
 GEMMA = {"B": 1, "S": 4096, "SK": 4096, "H": 16, "KV": 16, "D": 256,
-         "ROWS": 4096}
+         "ROWS": 4096, "DK": 64, "DV": 64}
 GEMMA_SERVE = {"B": 8, "S": 2048, "SK": 2048, "H": 16, "KV": 16, "D": 256,
-               "ROWS": 8}
+               "ROWS": 8, "DK": 128, "DV": 128}
 TEST_DIMS = {"B": 2, "S": 100, "SK": 100, "H": 4, "KV": 2, "D": 16,
-             "ROWS": 5}
+             "ROWS": 5, "DK": 16, "DV": 8}
 
 
 @pytest.fixture
@@ -78,6 +84,63 @@ def test_space_defaults_are_the_ops_defaults(kernel):
     space = KernelSpace(kernel).space()
     assert space.default_config() == ops.DEFAULT_BLOCKS[kernel]
     assert set(space.names) == set(KernelSpace(kernel).knobs)
+
+
+def test_gla_space_matches_the_reference():
+    """The gla space: the reference's chunk choices and default, its
+    dims; num_warps (0 = the launcher's choice) in place of the TPU's
+    dim_semantics."""
+    from repro.autotune.space import KERNELS as JKERNELS
+    from repro.autotune.space import KernelSpace as JKernelSpace
+
+    space, jspace = KernelSpace("gla").space(), JKernelSpace("gla").space()
+    assert space["chunk"].choices == jspace["chunk"].choices
+    assert space.default_config()["chunk"] == \
+        jspace.default_config()["chunk"] == 128
+    assert space.default_config()["num_warps"] == 0
+    assert set(space.names) == {"chunk", "num_warps"}
+    assert KERNELS["gla"].dims == JKERNELS["gla"].dims
+    assert ops.DEFAULT_BLOCKS["gla"] == {"chunk": 128, "num_warps": 0}
+
+
+@pytest.mark.parametrize("dims", [
+    {"B": 1, "S": 4096, "H": 64, "DK": 64, "DV": 64},    # Zamba2-1.2B
+    {"B": 1, "S": 70, "H": 2, "DK": 128, "DV": 128},     # the largest head
+    {"B": 1, "S": 256, "H": 2, "DK": 512, "DV": 513},    # xLSTM's mLSTM
+], ids=["zamba2", "dk128", "xlstm"])
+def test_gla_feasible_iff_the_state_fits(dims):
+    """Feasible exactly where the cost is finite; a head whose f32 state
+    overflows a block's shared memory is infeasible at every chunk."""
+    model = kernel_feasibility("gla", dims, "float32")
+    for cfg in _grid("gla"):
+        cost = KERNELS["gla"].model_cost(cfg, dims, "float32")
+        assert model(cfg) == math.isfinite(cost), (cfg, cost)
+        assert model(cfg) == (dims["DK"] <= 128), cfg
+
+
+def test_ops_gla_resolves_the_cache_but_the_model_passes_its_chunk(
+        tmp_cache, monkeypatch):
+    """``ops.gla`` resolves chunk explicit > tuned > default; Mamba2
+    passes ``cfg.ssm_chunk`` explicitly (as the reference does), so a
+    tuned chunk never reaches the model."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import ssm
+
+    dims = {"B": 1, "S": 32, "H": 2, "DK": 8, "DV": 8}
+    autotune.default_cache().put("gla", autotune.shape_sig(dims), "float32",
+                                 "cpu", {"chunk": 16, "num_warps": 4}, 1.0)
+    assert ops._resolve("gla", dims, torch.float32, "cpu",
+                        {"chunk": None, "num_warps": None}) == {
+        "chunk": 16, "num_warps": 4}
+    seen = []
+    monkeypatch.setattr(ops, "gla_cuda",
+                        lambda *a, **kw: seen.append(kw["chunk"]))
+    q = torch.zeros(1, 32, 2, 8)
+    ops.gla(q, q, q, torch.zeros(1, 32, 2))
+    cfg = reduced(get_config("zamba2-1.2b"))
+    ssm._gla(dataclasses.replace(cfg, gla_impl="pallas"), q, q, q,
+             torch.zeros(1, 32, 2))
+    assert seen == [16, cfg.ssm_chunk]
 
 
 def test_key_format_is_the_reference_key():

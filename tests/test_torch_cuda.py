@@ -6,20 +6,25 @@ Marked ``cuda``: each test skips where there is no card.  On the card:
 
 (this file imports no JAX, so it also runs where JAX is not installed).
 Each kernel is held to its plain PyTorch version with the CPU tests'
-tolerances, f32 2e-5 and bf16 2e-2.
+tolerances, f32 2e-5 and bf16 2e-2 (for GLA, whose f32 sums have terms as
+large as the largest output, the absolute part scales with max |ref|).
 """
+import dataclasses
+
 import pytest
 import torch
 
 from repro_torch import autotune
-from repro_torch.configs import ModelConfig
+from repro_torch.configs import ModelConfig, get_config, reduced
 from repro_torch.kernels import decode_attention as fd
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import gla as gl
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels.ref import attention_ref, rmsnorm_ref
 from repro_torch.models import Model
+from repro_torch.models.gla import chunked_gla
 from repro_torch.serve import ServeConfig, ServeEngine
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -198,7 +203,10 @@ def test_rmsnorm_matches_plain_version(card, dtype, shape, block_rows,
         _randn((1, 2, 16), torch.float32), torch.zeros(3, 16, 2, 16),
         torch.zeros(3, 16, 2, 16), torch.ones(1, 1, dtype=torch.int32),
         torch.ones(1, dtype=torch.int32)),
-], ids=["flash_attention", "flash_decode", "rmsnorm", "paged"])
+    lambda: ops.gla(_randn((1, 8, 2, 16), torch.float32),
+                    torch.zeros(1, 8, 2, 16), torch.zeros(1, 8, 2, 16),
+                    torch.zeros(1, 8, 2)),
+], ids=["flash_attention", "flash_decode", "rmsnorm", "paged", "gla"])
 def test_wrappers_raise_on_mixed_devices(card, call):
     """A CUDA tensor beside a CPU one raises: nothing falls back."""
     with pytest.raises(ValueError, match="is on cpu"):
@@ -221,3 +229,105 @@ def test_autotune_times_on_the_card(card, tmp_path, monkeypatch):
                        {"block_rows": None, "num_warps": None})
     assert got == res["config"]
     autotune.reset_default_cache()
+
+
+def _gla_inputs(B, S, H, dk, dv, dtype, shared_qk=False):
+    if shared_qk:  # one row per step broadcast over the heads (Mamba2)
+        rows = _randn((B, S, 2 * dk), dtype, 1)
+        q = rows[:, :, None, :dk].expand(B, S, H, dk)
+        k = rows[:, :, None, dk:].expand(B, S, H, dk)
+    else:
+        q, k = _randn((B, S, H, dk), dtype, 1), _randn((B, S, H, dk), dtype, 2)
+    v = _randn((B, S, H, dv), dtype, 3)
+    log_g = -_randn((B, S, H), torch.float32, 4).abs() * 0.3
+    return q, k, v, log_g
+
+
+def _gla_close(got, want, tol):
+    w = want.float()
+    err = (got.float() - w).abs()
+    assert bool((err <= tol * float(w.abs().max()) + tol * w.abs()).all()), \
+        float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,dk,dv,chunk,shared_qk", [
+    (1, 16, 1, 4, 4, 8, False),
+    (2, 64, 3, 8, 16, 16, False),
+    (1, 70, 2, 16, 8, 32, False),      # ragged
+    (2, 128, 4, 32, 32, 64, False),
+    (2, 1000, 4, 64, 32, 256, True),   # ragged at the model's chunk
+    (1, 300, 2, 128, 128, 256, False),  # the largest head
+    (1, 4096, 64, 64, 64, 256, True),  # Zamba2-1.2B's Mamba2 layer
+])
+def test_gla_matches_plain_version(card, dtype, B, S, H, dk, dv, chunk,
+                                   shared_qk):
+    q, k, v, lg = _gla_inputs(B, S, H, dk, dv, dtype, shared_qk)
+    before = gl.gla_cuda.launches
+    y, st = ops.gla(q, k, v, lg, chunk=chunk)
+    yr, sr = chunked_gla(q, k, v, lg, chunk=chunk)
+    torch.cuda.synchronize()
+    assert gl.gla_cuda.launches == before + 1
+    assert y.dtype == dtype and st.dtype == torch.float32
+    _gla_close(y, yr, TOL[dtype])
+    _gla_close(st, sr, TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_warps", [None, 1, 2, 8, 16])
+def test_gla_num_warps(card, num_warps):
+    q, k, v, lg = _gla_inputs(1, 200, 3, 32, 64, torch.float32)
+    y, _ = ops.gla(q, k, v, lg, chunk=64, num_warps=num_warps)
+    _gla_close(y, chunked_gla(q, k, v, lg, chunk=64)[0], 2e-5)
+
+
+@pytest.mark.cuda
+def test_gla_rejects_a_head_whose_state_does_not_fit(card):
+    q, k, v, lg = _gla_inputs(1, 16, 2, 512, 513, torch.float32)
+    with pytest.raises(ValueError, match="dk=512"):
+        ops.gla(q, k, v, lg)
+
+
+@pytest.mark.cuda
+def test_gla_raises_on_inputs_that_require_grad(card):
+    q, k, v, lg = _gla_inputs(1, 32, 2, 16, 16, torch.float32)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ops.gla(q.requires_grad_(), k, v, lg)
+    with torch.no_grad():  # nothing to differentiate: it launches
+        ops.gla(q, k, v, lg)
+
+
+def _to_card(tree):
+    if isinstance(tree, dict):
+        return {k: _to_card(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_card(v) for v in tree]
+    return tree.cuda()
+
+
+@pytest.mark.cuda
+def test_zamba2_forward_on_card_matches_cpu(card):
+    """reduced(zamba2-1.2b), f32: the kernel path on the card (36 GLA and
+    2 flash launches a forward) against the plain path on the CPU, from
+    the same weights."""
+    cfg = dataclasses.replace(reduced(get_config("zamba2-1.2b")),
+                              gla_impl="pallas", attn_impl="pallas")
+    params = Model(cfg, device="cpu").init(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    _, want = Model(cfg, device="cpu").loss(params, batch)
+    h_cpu, _ = Model(cfg, device="cpu").forward(params, batch)
+    on_card = {k: v.cuda() for k, v in batch.items()}
+    card_params = _to_card(params)
+    model = Model(cfg, device="cuda")
+    g0, f0 = gl.gla_cuda.launches, fa.flash_attention_cuda.launches
+    with torch.no_grad():
+        h, _ = model.forward(card_params, on_card)
+        _, got = model.loss(card_params, on_card)
+    torch.cuda.synchronize()
+    assert gl.gla_cuda.launches - g0 == 2 * 36
+    assert fa.flash_attention_cuda.launches - f0 == 2 * 2
+    torch.testing.assert_close(h.cpu(), h_cpu, rtol=1e-3, atol=1e-3)
+    assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-4

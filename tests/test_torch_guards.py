@@ -168,7 +168,7 @@ def test_unported_knob_raises(knob):
 
 
 @pytest.mark.parametrize("change", [
-    dict(superblock=("swa",)), dict(activation="gelu"),
+    dict(superblock=("swa",)), dict(superblock=("mlstm",)),
     dict(tie_embeddings=False)], ids=str)
 def test_unported_model_config_raises(change):
     import dataclasses

@@ -129,10 +129,18 @@ def test_self_attention_chunk_append(index, chunk):
 
 
 def test_unported_attention_paths_raise():
+    """Cache-free attention and the blocked impl are ported (held to the
+    reference in tests/test_torch_ssm.py); the banded sliding-window impl
+    and the per-slot dense cache are not."""
     rng = np.random.default_rng(5)
     p = {k: _t(v) for k, v in _attn_params(rng).items()}
     x = _t(_np(rng, 1, 2, 64))
-    with pytest.raises(NotImplementedError, match="cache-free"):
-        attention.self_attention(p, x, cfg=CFG, positions=torch.arange(2))
-    with pytest.raises(NotImplementedError, match="impl"):
-        attention.attend(x, x, x, cfg=CFG, impl="blocked")
+    cache = {"k": torch.zeros(1, 8, CFG.n_kv_heads, CFG.head_dim_),
+             "v": torch.zeros(1, 8, CFG.n_kv_heads, CFG.head_dim_)}
+    with pytest.raises(NotImplementedError, match="per-slot"):
+        attention.self_attention(p, x, cfg=CFG, positions=torch.arange(2),
+                                 cache=cache,
+                                 cache_index=torch.tensor([0]))
+    q = _t(_np(rng, 1, 16, 4, 16))
+    with pytest.raises(NotImplementedError, match="impl 'local'"):
+        attention.attend(q, q, q, cfg=CFG, impl="local", window=4)
