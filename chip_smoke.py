@@ -8,16 +8,22 @@ Phases (each failure exits non-zero):
 1. device   - the card's name and power limit (nvidia-smi); no CUDA, no run.
 2. build    - every kernel source under src/repro_torch/kernels/csrc, built
               anew (one nvcc each, all at once) even where a library of it
-              is already built; each build's seconds.
+              is already built; each build's seconds; the registers and
+              spill bytes ptxas reports for each bf16 flash-attention
+              instantiation, which must not spill.
 3. kernels  - each kernel against its plain PyTorch version on the card, at
               the Gemma-7B (GLA: Zamba2-1.2B) shapes and the CPU tests'
-              shapes, in bf16 and f32; every config of each tuning space
-              (KernelSpace) that fits the card launched once at a
-              model-width shape and held to the plain version, and its
-              shared memory as the library reports it held to the space's
-              smem_footprint; each kernel timed at its main-path shape
-              beside its bound, the plain version and one PyTorch library
-              call where there is one.
+              shapes, in bf16 and f32; the bf16 tensor-core flash kernel
+              at every head dim and key tile it is built for; every config
+              of each tuning space (KernelSpace) that fits the card
+              launched once in each dtype at a model-width shape and held
+              to the plain version, and its shared memory as the library
+              reports it held to the space's smem_footprint; each kernel
+              timed at its main-path shape beside its bound, the plain
+              version and one PyTorch library call where there is one, by
+              two clocks: host-paced (``time_ms``) and device-only
+              (``device_ms``: a CUDA graph of many calls on L2-cold
+              inputs).
 4. parity   - a tiny f32 model served on the card and on the CPU from the
               same weights: the greedy tokens must be equal.
 5. serve    - Gemma-7B at full width in bf16 (random weights from a seed,
@@ -56,6 +62,7 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -92,6 +99,15 @@ BF16_FLOPS_PER_S = 989e12
 F32_FLOPS_PER_S = 67e12  # f32 outside the tensor cores
 # the CPU tests' tolerances (the reference kernel tests' TOL)
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# flash attention at the main-path shapes (S = 4096), beside TOL: an
+# output averages about 2k keys, so a typical |out| is near 0.03 and
+# TOL's 2e-2 absolute part hides a fault in late key tiles.  The bar is
+# on ||got - ref|| / ||ref||, over the whole output and over its last 64
+# query rows (those that read the most key tiles).  bf16: rounding the
+# output and P to bf16 gives a few 1e-3; the bar leaves a margin above
+# that, and a wrong tile, ring stage or rescale gives 1e-1 or more.
+# f32: both paths sum in f32 (about 1e-6)
+FLASH_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # phase 8, bf16 at full width, kernels against plain versions: the two
 # paths differ in f32 summation order (GLA, attention) and so in a few
 # bf16 roundings of each layer's output, compounding over 38 layers (a
@@ -111,6 +127,9 @@ MIN_LOGIT_CORR = 0.99
 # the tune phase's budget per kernel (tests, each a warm-up and 3 timed
 # launches); the serve engine tunes its own shapes at its default budget
 TUNE_BUDGET = 8
+# the H100's L2: the device-only clock rotates among input sets that
+# together hold at least twice this, so each call reads device memory
+L2_BYTES = 50 * 2**20
 # kernel record name -> its wrapper, whose launch count the paths read
 WRAPPERS = {
     "paged_flash_decode": pa.paged_flash_decode_cuda,
@@ -173,6 +192,69 @@ def time_ms(fn, runs: int, warmup: int = 3) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / runs
+
+
+def cold_sets(make_inputs) -> list:
+    """Input sets from ``make_inputs()``, enough (2 to 8) that together
+    they hold at least twice the L2: a call that rotates among them finds
+    its inputs in device memory, as the bound assumes."""
+    sets = [make_inputs()]
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in sets[0] if isinstance(t, torch.Tensor)}
+    per_set = sum(storages.values())
+    while len(sets) < min(8, max(2, -(-2 * L2_BYTES // per_set))):
+        sets.append(make_inputs())
+    return sets
+
+
+def device_ms(fn, sets, calls: int = 32, replays: int = 5) -> float:
+    """Device-only ms a call: ``fn(*inputs)`` captured ``calls`` times in
+    one CUDA graph, rotating among ``sets`` (``cold_sets``), then CUDA
+    events around ``replays`` replays.  The replays run none of the
+    wrapper's host work (resolution, checks, ctypes): only the launches,
+    back to back on the card.  The ctypes launches go on the current
+    stream, which is the capture stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        for inputs in sets:
+            fn(*inputs)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for i in range(calls):
+            fn(*sets[i % len(sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    stop.synchronize()
+    ms = start.elapsed_time(stop) / (replays * calls)
+    del graph
+    return ms
+
+
+def ptxas_kernels(log: str) -> list:
+    """(entry function, registers, spill store bytes, spill load bytes)
+    for each kernel of a build's ``-Xptxas -v`` report."""
+    out, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        if "Compiling entry function '" in line:
+            name = line.split("'")[1]
+        elif "bytes spill stores" in line and name:
+            w = line.replace(",", "").split()
+            spill = (int(w[w.index("spill") - 2]),
+                     int(w[w.index("loads") - 3]))
+        elif "Used" in line and "registers" in line and name:
+            w = line.replace(",", "").split()
+            out.append((name, int(w[w.index("registers") - 1]), *spill))
+            name, spill = None, (0, 0)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -258,13 +340,36 @@ def close(got, want, what, scaled: bool = False) -> float:
     return float(err.max())
 
 
-def record(name, err, ms, plain_ms, bound, library_ms):
+def rel_err(got, want) -> float:
+    """||got - want|| / ||want|| in f32."""
+    w = want.float()
+    return float((got.float() - w).norm() / w.norm())
+
+
+def record(name, err, ms, plain_ms, bound, library_ms, dev_ms,
+           library_dev_ms):
+    """A kernel's line: ``ms``, ``plain_ms`` and ``library_ms`` by the
+    host-paced clock, ``device_ms`` and ``library_device_ms`` by the
+    device-only one."""
     src, replaces = SOURCES[name]
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-            "bound_by": bound[1], "library_ms": library_ms}
+            "bound_by": bound[1], "library_ms": library_ms,
+            "device_ms": dev_ms, "library_device_ms": library_dev_ms}
+
+
+def clocks(what, ms, dev_ms, bound, lib_ms=None, lib_dev_ms=None,
+           lib="library"):
+    """One line of both clocks for a kernel (and its library call)."""
+    line = (f"  {what}: kernel {ms:.4f} ms host-paced, {dev_ms:.4f} ms "
+            f"device-only ({bound[0] / dev_ms * 100:.1f}% of the "
+            f"{bound[0]:.4f} ms bound by {bound[1]})")
+    if lib_ms is not None:
+        line += (f"; {lib} {lib_ms:.4f} ms host-paced, {lib_dev_ms:.4f} ms "
+                 f"device-only")
+    print(line)
 
 
 # ---------------------------------------------------------------------------
@@ -327,6 +432,11 @@ def kernels_paged():
     q4 = q[:, :, None, :]
     library_ms = time_ms(lambda: sdpa(q4, k_dense, v_dense, attn_mask=mask),
                          runs=20)
+    dev_ms = device_ms(ops.paged_flash_decode, cold_sets(lambda: paged_case(
+        **gemma, dtype=torch.bfloat16, lengths=gemma_lengths)))
+    lib_dev_ms = device_ms(
+        lambda *a: sdpa(*a, attn_mask=mask),
+        cold_sets(lambda: (q4.clone(), k_dense.clone(), v_dense.clone())))
     # least work: read q, the valid tokens' K and V rows, their page-table
     # entries and the lengths once; write the output once
     tokens = int(ln.sum())
@@ -336,14 +446,80 @@ def kernels_paged():
                    + groups * 4 + B * 4 + q.numel() * esize)
     flops = 4 * tokens * H * D  # q.k and p.v, per query head
     bound = bound_of(bytes_moved, flops)
-    print(f"  gemma decode shape bf16: kernel {ms:.4f} ms (launcher's "
-          f"block size), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms,"
-          f" bound {bound[0]:.4f} ms ({bytes_moved} bytes, {flops} flops; "
-          f"{bound[0] / ms * 100:.1f}% of the bound)")
+    print(f"  gemma decode shape bf16 (the launcher's block size): plain "
+          f"{plain_ms:.4f} ms ({bytes_moved} bytes, {flops} flops)")
+    clocks("gemma decode shape", ms, dev_ms, bound, library_ms, lib_dev_ms,
+           "sdpa")
     print("  num_warps sweep (ms): " + ", ".join(
         f"{nw}: {t:.4f}" for nw, t in sweep.items()))
     return record("paged_flash_decode", errs[(0, torch.bfloat16)], ms,
-                  plain_ms, bound, library_ms)
+                  plain_ms, bound, library_ms, dev_ms, lib_dev_ms)
+
+
+def flash_tc_sweep(g):
+    """The bf16 tensor-core kernel at every head dim and key tile (wgmma
+    N) it is built for, with ragged Sq and Sk, a window and a q_offset;
+    D=256 at 128 keys needs 256 KB of shared memory and must be refused."""
+    worst = 0.0
+    for D in fa.HEAD_DIMS:
+        for bk in fa.TILE_KEYS:
+            cases = [  # B, S, SK, H, KV, causal, window, q_offset, bq
+                (2, 100, 130, 4, 2, True, 0, 30, 128),
+                (1, 70, 90, 4, 1, True, 24, 20, 32),
+                (1, 48, 40, 2, 2, False, 0, 0, 64),
+            ]
+            for B, S, SK, H, KV, causal, window, off, bq in cases:
+                q, k, v = (rnd(g, (B, S, H, D), torch.bfloat16),
+                           rnd(g, (B, SK, KV, D), torch.bfloat16),
+                           rnd(g, (B, SK, KV, D), torch.bfloat16))
+                call = (lambda: ops.flash_attention(
+                    q, k, v, causal=causal, window=window, q_offset=off,
+                    block_q=bq, block_kv=bk))
+                if fa.smem_bytes(D, "bfloat16", min(bq, S),
+                                 min(bk, SK)) > autotune.smem_limit(DEV):
+                    try:
+                        call()
+                        check(False, f"flash D={D} block_kv={bk} launched")
+                    except ValueError as e:
+                        check("shared memory" in str(e), str(e))
+                    continue
+                worst = max(worst, close(call(), attention_ref(
+                    q, k, v, causal=causal, window=window, q_offset=off),
+                    f"flash tc D={D} block_kv={bk} S={S} SK={SK}"))
+    print(f"  flash bf16 tensor-core kernel: every D in {fa.HEAD_DIMS} x "
+          f"key tile in {fa.TILE_KEYS} (D=256 x 128 refused: shared "
+          f"memory), ragged Sq and Sk, a window, a q_offset: max abs err "
+          f"{worst:.3e} (tol {TOL[torch.bfloat16]})")
+
+
+def flash_timing(g, what, shape):
+    """Both clocks for the kernel at its default tiles, the plain version
+    and SDPA at a causal main-path shape, bf16."""
+    B, S, SK, H, KV, D = shape[:6]
+    dtype = torch.bfloat16
+
+    def make():
+        return (rnd(g, (B, S, H, D), dtype), rnd(g, (B, SK, KV, D), dtype),
+                rnd(g, (B, SK, KV, D), dtype))
+
+    sets = cold_sets(make)
+    q, k, v = sets[0]
+    ms = time_ms(lambda: ops.flash_attention(q, k, v), runs=10)
+    dev_ms = device_ms(ops.flash_attention, sets)
+    plain_ms = time_ms(lambda: attention_ref(q, k, v), runs=5)
+    sets = [tuple(t.transpose(1, 2).contiguous() for t in inputs)
+            for inputs in sets]  # SDPA's (B, H, S, D), the same values
+    q4, k4, v4 = sets[0]
+    lib_ms = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True), runs=10)
+    lib_dev_ms = device_ms(lambda *a: sdpa(*a, is_causal=True), sets)
+    del sets, q4, k4, v4
+    work = flash_work(B, S, SK, H, KV, D, q.element_size())
+    bound = bound_of(*work)
+    print(f"  {what} bf16 (B={B} S={S} H={H} D={D}, causal, default tiles "
+          f"{ops.DEFAULT_BLOCKS['flash_attention']}): plain {plain_ms:.4f} "
+          f"ms ({work[0]} bytes, {work[1]} flops)")
+    clocks(what, ms, dev_ms, bound, lib_ms, lib_dev_ms, "sdpa")
+    return ms, plain_ms, bound, lib_ms, dev_ms, lib_dev_ms
 
 
 def kernels_flash():
@@ -375,42 +551,26 @@ def kernels_flash():
                                  q_offset=off)
             errs[(shape, dtype)] = err = close(got, want,
                                                f"flash_attention {shape}")
-            print(f"  flash_attention {shape[:9]} {str(dtype)[6:]}: max abs "
-                  f"err {err:.3e} (tol {TOL[dtype]})")
+            line = (f"  flash_attention {shape[:9]} {str(dtype)[6:]}: max "
+                    f"abs err {err:.3e} (tol {TOL[dtype]})")
+            if shape in (gemma, ZAMBA_FLASH):
+                rel = (rel_err(got, want),
+                       rel_err(got[:, -64:], want[:, -64:]))
+                check(max(rel) <= FLASH_REL_TOL[dtype],
+                      f"flash_attention {shape} {dtype}: norm-relative "
+                      f"error {rel} above {FLASH_REL_TOL[dtype]}")
+                line += (f"; norm-relative err {rel[0]:.3e}, last 64 rows "
+                         f"{rel[1]:.3e} (bar {FLASH_REL_TOL[dtype]})")
+            print(line)
             del q, k, v, got, want
-    B, S, SK, H, KV, D = gemma[:6]
-    dtype = torch.bfloat16
-    q, k, v = (rnd(g, (B, S, H, D), dtype), rnd(g, (B, SK, KV, D), dtype),
-               rnd(g, (B, SK, KV, D), dtype))
-    ms = time_ms(lambda: ops.flash_attention(q, k, v), runs=10)
-    plain_ms = time_ms(lambda: attention_ref(q, k, v), runs=5)
-    q4, k4, v4 = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    library_ms = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True), runs=10)
-    work = flash_work(B, S, SK, H, KV, D, q.element_size())
-    bound = bound_of(*work)
-    print(f"  gemma train_4k bf16 (B={B} S={S} H={H} D={D}, causal, "
-          f"default tiles): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"sdpa {library_ms:.4f} ms, bound {bound[0]:.4f} ms by "
-          f"{bound[1]} ({work[0]} bytes, {work[1]} flops; "
-          f"{bound[0] / ms * 100:.2f}% of the bound)")
-    # the Zamba2-1.2B shared block's shape (phase 8's two launches)
-    B, S, SK, H, KV, D = ZAMBA_FLASH[:6]
-    q, k, v = (rnd(g, (B, S, H, D), dtype), rnd(g, (B, SK, KV, D), dtype),
-               rnd(g, (B, SK, KV, D), dtype))
-    z_ms = time_ms(lambda: ops.flash_attention(q, k, v), runs=10)
-    z_plain = time_ms(lambda: attention_ref(q, k, v), runs=5)
-    q4, k4, v4 = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    z_lib = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True), runs=10)
-    work = flash_work(B, S, SK, H, KV, D, q.element_size())
-    z_bound = bound_of(*work)
-    print(f"  zamba2 shared block bf16 (B={B} S={S} H={H} D={D}, causal, "
-          f"default tiles): kernel {z_ms:.4f} ms, plain {z_plain:.4f} ms, "
-          f"sdpa {z_lib:.4f} ms, bound {z_bound[0]:.4f} ms by {z_bound[1]} "
-          f"({work[0]} bytes, {work[1]} flops; "
-          f"{z_bound[0] / z_ms * 100:.2f}% of the bound); max abs err "
-          f"{errs[(ZAMBA_FLASH, dtype)]:.3e}")
-    return record("flash_attention", errs[(gemma, dtype)], ms, plain_ms,
-                  bound, library_ms)
+    flash_tc_sweep(g)
+    timed = flash_timing(g, "gemma train_4k", gemma)
+    flash_timing(g, "zamba2 shared block", ZAMBA_FLASH)
+    print(f"  zamba2 shared block bf16: max abs err "
+          f"{errs[(ZAMBA_FLASH, torch.bfloat16)]:.3e}")
+    ms, plain_ms, bound, lib_ms, dev_ms, lib_dev_ms = timed
+    return record("flash_attention", errs[(gemma, torch.bfloat16)], ms,
+                  plain_ms, bound, lib_ms, dev_ms, lib_dev_ms)
 
 
 # B, S, SK, H, KV, D, causal, window, q_offset, block_q, block_kv
@@ -459,14 +619,24 @@ def kernels_decode():
     q4 = q[:, :, None, :]
     k4, v4 = (t.transpose(1, 2).contiguous() for t in (k, v))
     library_ms = time_ms(lambda: sdpa(q4, k4, v4), runs=20)
+
+    sets = cold_sets(lambda: (rnd(g, (B, H, D), dtype),
+                              rnd(g, (B, S, KV, D), dtype),
+                              rnd(g, (B, S, KV, D), dtype), kl))
+    dev_ms = device_ms(ops.flash_decode, sets)
+    lib_dev_ms = device_ms(sdpa, [
+        (q_[:, :, None, :], *(t.transpose(1, 2).contiguous()
+                              for t in (k_, v_)))
+        for q_, k_, v_, _ in sets])  # the same values in SDPA's layout
+    del sets
     work = decode_work(B, H, KV, D, S, q.element_size())
     bound = bound_of(*work)
     print(f"  gemma engine decode shape bf16 (B={B} S={S} full, default "
-          f"block_kv): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-          f"{library_ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
-          f"({work[0]} bytes; {bound[0] / ms * 100:.1f}% of the bound)")
+          f"block_kv): plain {plain_ms:.4f} ms ({work[0]} bytes)")
+    clocks("gemma engine decode shape", ms, dev_ms, bound, library_ms,
+           lib_dev_ms, "sdpa")
     return record("flash_decode", errs[(gemma, S, dtype)], ms, plain_ms,
-                  bound, library_ms)
+                  bound, library_ms, dev_ms, lib_dev_ms)
 
 
 def kernels_rmsnorm():
@@ -489,23 +659,43 @@ def kernels_rmsnorm():
     err = close(ops.rmsnorm(x, s), rmsnorm_ref(x, s), "rmsnorm bf16 scale")
     print(f"  rmsnorm (64, 3072) bf16 with a bf16 scale: max abs err "
           f"{err:.3e}")
+    # the register path, and the loop path (d not a multiple of a 16-byte
+    # vector, or a row too long for the registers), both dtypes, with a
+    # bf16 scale on bf16 rows
+    for shape in ((64, 2048), (64, 3002), (16, 10240)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for s_dtype in {torch.float32, dtype}:
+                x = rnd(g, shape, dtype)
+                s = rnd(g, (shape[-1],), s_dtype)
+                close(ops.rmsnorm(x, s), rmsnorm_ref(x, s),
+                      f"rmsnorm {shape} {dtype} scale {s_dtype}")
+    print("  rmsnorm register path (64, 2048), loop path (64, 3002) and "
+          "(16, 10240), bf16 and f32, f32 and bf16 scales: within tol")
     rows, D = gemma[0]
-    x = rnd(g, (rows, D), torch.bfloat16)
-    s = torch.randn(D, generator=g, device=DEV)
+    sets = cold_sets(lambda: (rnd(g, (rows, D), torch.bfloat16),
+                              torch.randn(D, generator=g, device=DEV)))
+    x, s = sets[0]
     ms = time_ms(lambda: ops.rmsnorm(x, s), runs=50)
     plain_ms = time_ms(lambda: rmsnorm_ref(x, s), runs=20)
     s_lib = s.to(x.dtype)
-    library_ms = time_ms(lambda: torch.nn.functional.rms_norm(
-        x, (D,), weight=s_lib, eps=1e-6), runs=20)
+
+    def library(x_, w_):
+        return torch.nn.functional.rms_norm(x_, (D,), weight=w_, eps=1e-6)
+
+    library_ms = time_ms(lambda: library(x, s_lib), runs=20)
+    # the kernel and F.rms_norm read the same buffers by the device clock
+    dev_ms = device_ms(ops.rmsnorm, sets)
+    lib_dev_ms = device_ms(library, [(x_, s_.to(x_.dtype))
+                                     for x_, s_ in sets])
+    del sets
     work = rms_work(rows, D, x.element_size())
     bound = bound_of(*work)
     print(f"  gemma train_4k rows bf16 (ROWS={rows} D={D}, default "
-          f"block_rows): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"F.rms_norm {library_ms:.4f} ms, bound {bound[0]:.4f} ms by "
-          f"{bound[1]} ({work[0]} bytes; {bound[0] / ms * 100:.1f}% of the "
-          f"bound)")
+          f"block_rows): plain {plain_ms:.4f} ms ({work[0]} bytes)")
+    clocks("gemma train_4k rows", ms, dev_ms, bound, library_ms, lib_dev_ms,
+           "F.rms_norm")
     return record("rmsnorm", errs[(gemma[0], torch.bfloat16)], ms, plain_ms,
-                  bound, library_ms)
+                  bound, library_ms, dev_ms, lib_dev_ms)
 
 
 def gla_case(g, B, S, H, dk, dv, dtype, shared_qk):
@@ -576,6 +766,9 @@ def kernels_gla():
     ms = time_ms(lambda: ops.gla(q, k, v, lg, chunk=chunk), runs=10)
     plain_ms = time_ms(lambda: chunked_gla(q, k, v, lg, chunk=chunk), runs=3,
                        warmup=1)
+    dev_ms = device_ms(lambda *a: ops.gla(*a, chunk=chunk), cold_sets(
+        lambda: gla_case(g, B, S, H, dk, dv, dtype, shared)), calls=8,
+        replays=3)
     work = gla_work(B, S, H, dk, dv, chunk, q.element_size(), shared)
     bound = bound_of(*work, flops_per_s=F32_FLOPS_PER_S)
     print(f"  zamba2 mamba2 shape f32 (B={B} S={S} H={H} dk={dk} dv={dv} "
@@ -585,7 +778,9 @@ def kernels_gla():
           f"{F32_FLOPS_PER_S:.3g} flop/s; {bound[0] / ms * 100:.2f}% of the "
           f"bound); {B * H} blocks for the card's "
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
-    return record("gla", errs[(zamba, dtype)], ms, plain_ms, bound, None)
+    clocks("zamba2 mamba2 shape", ms, dev_ms, bound)
+    return record("gla", errs[(zamba, dtype)], ms, plain_ms, bound, None,
+                  dev_ms, None)
 
 
 # Model-width shapes for the sweep over each tuning space's configs: the
@@ -626,7 +821,8 @@ def sweep_spaces():
     """Every config of each tuning space: the library's shared memory
     equals smem_footprint (both dtypes); each config the card's opt-in
     limit admits launches through the tuner's own call adapter at a
-    Gemma-width shape and agrees with the plain version."""
+    Gemma-width shape, in each dtype, and agrees with the plain
+    version."""
     limit = autotune.smem_limit(DEV)
     rng = np.random.default_rng(SEED)
     for kernel, dims in SWEEP_DIMS.items():
@@ -643,33 +839,38 @@ def sweep_spaces():
                 check(got == want, f"{kernel} {cfg} {dname}: the library "
                                    f"reports {got} bytes of shared memory, "
                                    f"smem_footprint {want}")
-        inputs = kdef.make_inputs(dims, "bfloat16", rng, DEV)
-        if kernel == "flash_attention":
-            want = attention_ref(*inputs)
-        elif kernel == "decode_attention":
-            want = fd.decode_attention_ref(*inputs)
-        elif kernel == "paged_attention":
-            want = fd.decode_attention_ref(inputs["q"], inputs["k"],
-                                           inputs["v"], inputs["kv_len"])
-        elif kernel == "gla":
-            want = chunked_gla(*inputs)[0]
-        else:
-            want = rmsnorm_ref(*inputs)
-        feasible = kernel_feasibility(kernel, dims, "bfloat16",
-                                      smem_limit=limit)
-        n_run = worst = 0
-        for cfg in grid:
-            if not feasible(cfg):
-                continue
-            err = close(kdef.call(inputs, cfg), want, f"{kernel} {cfg}",
-                        scaled=kernel == "gla")
-            worst = max(worst, err)
-            n_run += 1
+        ran = {}
+        for dname in ("bfloat16", "float32"):
+            inputs = kdef.make_inputs(dims, dname, rng, DEV)
+            if kernel == "flash_attention":
+                want = attention_ref(*inputs)
+            elif kernel == "decode_attention":
+                want = fd.decode_attention_ref(*inputs)
+            elif kernel == "paged_attention":
+                want = fd.decode_attention_ref(inputs["q"], inputs["k"],
+                                               inputs["v"], inputs["kv_len"])
+            elif kernel == "gla":
+                want = chunked_gla(*inputs)[0]
+            else:
+                want = rmsnorm_ref(*inputs)
+            feasible = kernel_feasibility(kernel, dims, dname,
+                                          smem_limit=limit)
+            n_run = worst = 0
+            for cfg in grid:
+                if not feasible(cfg):
+                    continue
+                err = close(kdef.call(inputs, cfg), want,
+                            f"{kernel} {cfg} {dname}",
+                            scaled=kernel == "gla")
+                worst = max(worst, err)
+                n_run += 1
+            ran[dname] = f"{n_run} in {dname} (max abs err {worst:.3e})"
+            del inputs, want
         print(f"  {kernel} space: {len(grid)} configs, shared memory "
-              f"equal to smem_footprint for each (bf16, f32); {n_run} fit "
-              f"the card's {limit} bytes a block and agree with the plain "
-              f"version at {autotune.shape_sig(dims)} bf16 (max abs err "
-              f"{worst:.3e})")
+              f"equal to smem_footprint for each (bf16, f32); those that "
+              f"fit the card's {limit} bytes a block launch and agree with "
+              f"the plain version at {autotune.shape_sig(dims)}: "
+              + ", ".join(ran.values()))
 
 
 def phase_kernels():
@@ -972,31 +1173,37 @@ def phase_tune():
               f"{entry['meta']['n_tests']} tests, "
               f"{entry['meta']['n_infeasible_pruned']} pruned), bound "
               f"{bound[0]:.4f} ms by {bound[1]}, library {lib_ms:.4f} ms")
-        # the whole space on the card, by the same clock: how close the
-        # tuner's budget got to the grid's best
+        # the whole space on the card, by both clocks (the device-only
+        # one on a single input set: a ranking, not an L2-cold figure):
+        # how close the tuner's budget got to the grid's best
         feasible = kernel_feasibility(kernel, dims, cfg.compute_dtype,
                                       smem_limit=autotune.smem_limit(DEV))
         space = autotune.KernelSpace(kernel).space()
-        grid = {}
-        # one timed call a flash config: each takes 15 to 140 ms
-        grid_runs = 1 if kernel == "flash_attention" else 10
+        grids = {"host-paced": {}, "device-only": {}}
         for vals in itertools.product(*(space[n].choices
                                         for n in space.names)):
             c = dict(zip(space.names, vals))
             if feasible(c):
-                grid[tuple(vals)] = time_ms(lambda: kdef.call(inputs, c),
-                                            runs=grid_runs, warmup=1)
-        ranked = sorted(grid.values())
-        best = min(grid, key=grid.get)
-        won = grid[tuple(winner[n] for n in space.names)]
-        dflt = grid[tuple(default[n] for n in space.names)]
-        print(f"    grid: {len(grid)} configs fit; best "
-              f"{dict(zip(space.names, best))} {grid[best]:.4f} ms, "
-              f"median {statistics.median(ranked):.4f}, worst "
-              f"{ranked[-1]:.4f}; the winner {won:.4f} ms ranks "
-              f"{ranked.index(won) + 1} of {len(grid)} "
-              f"({won / grid[best]:.3f}x the best), the default "
-              f"{dflt:.4f} ms ({dflt / grid[best]:.3f}x)")
+                grids["host-paced"][vals] = time_ms(
+                    lambda: kdef.call(inputs, c), runs=10, warmup=1)
+                grids["device-only"][vals] = device_ms(
+                    lambda: kdef.call(inputs, c), [()], calls=16, replays=2)
+        for clock, grid in grids.items():
+            ranked = sorted(grid.values())
+            best = min(grid, key=grid.get)
+            won = grid[tuple(winner[n] for n in space.names)]
+            dflt = grid[tuple(default[n] for n in space.names)]
+            if kernel == "flash_attention":  # the whole ranking: PERF.md
+                print(f"    flash grid, {clock} (ms): " + ", ".join(
+                    f"{dict(zip(space.names, c))} {t:.4f}"
+                    for c, t in sorted(grid.items(), key=lambda kv: kv[1])))
+            print(f"    grid, {clock}: {len(grid)} configs fit; best "
+                  f"{dict(zip(space.names, best))} {grid[best]:.4f} ms, "
+                  f"median {statistics.median(ranked):.4f}, worst "
+                  f"{ranked[-1]:.4f}; the winner {won:.4f} ms ranks "
+                  f"{ranked.index(won) + 1} of {len(grid)} "
+                  f"({won / grid[best]:.3f}x the best), the default "
+                  f"{dflt:.4f} ms ({dflt / grid[best]:.3f}x)")
         del inputs
     return launched
 
@@ -1181,7 +1388,7 @@ def phase_zamba():
     del k32, p32, p32_model, h32, ph32
     gla_ms = sum(ms for k, ms in kernels.items() if "gla_kernel" in k)
     flash_ms = sum(ms for k, ms in kernels.items()
-                   if "flash_attention_kernel" in k)
+                   if "flash_tc_kernel" in k or "flash_attention_kernel" in k)
     print(f"  zamba2-1.2b bf16 full width: {n_params} params (init "
           f"{init_s:.2f} s), B={B} S={S}, {cfg.n_layers} layers: {n_mamba} "
           f"mamba2, {n_shared} shared-block invocations")
@@ -1245,6 +1452,20 @@ def main() -> int:
                       f"{len(spills)} with spills or stack")
                 for line in spills:
                     print(f"    {line}")
+            # the bf16 tensor-core flash kernel: registers and spills of
+            # each (D, key tile) instantiation
+            tc = [(k, r, st, ld) for k, r, st, ld in
+                  ptxas_kernels(built["flash_attention"].log)
+                  if "flash_tc_kernel" in k]
+            check(len(tc) == len(fa.HEAD_DIMS) * len(fa.TILE_KEYS) - 1,
+                  f"{len(tc)} bf16 flash instantiations in the ptxas report")
+            print("  flash_attention.cu bf16 (D, key tile): registers, "
+                  "spill store/load bytes: " + "; ".join(
+                      "({}, {}): {}, {}/{}".format(*re.search(
+                          r"flash_tc_kernelILi(\d+)ELi(\d+)E", k).groups(),
+                          r, st, ld) for k, r, st, ld in tc))
+            spilled = [k for k, _, st, ld in tc if st or ld]
+            check(not spilled, f"bf16 flash instantiations spill: {spilled}")
             phase(3, "kernels against their plain versions")
             records = phase_kernels()
             phase(4, "port on the card against the port on the cpu")

@@ -13,7 +13,9 @@ architecture end to end:
               knob is given — cache hit wins, builtin default otherwise.
 
 The backend component is ``backend_name(device)``: ``cuda-sm90`` on an
-H100, ``cpu`` for the cost model.  The reference's serve and train
+H100, ``model-sm90`` for the Hopper cost model (CPU-side work).  The
+reference writes ``cpu`` for its own cost model into the same file, so
+the two never overwrite each other's winners.  The reference's serve and train
 entries (``put_serve_config`` and the rest) come with ``--joint``
 (ROADMAP queue 1, item 5).
 """
@@ -47,11 +49,14 @@ def _cuda_backend(index: int) -> str:
 def backend_name(device: Union[str, torch.device] = "cuda") -> str:
     """The cache's backend component for work on ``device``:
     ``cuda-sm<major><minor>`` from the card's compute capability
-    (``cuda-sm90`` on an H100), ``cpu`` on the CPU.  The default asks for
-    the card and raises without one."""
+    (``cuda-sm90`` on an H100), ``model-sm90`` on the CPU: the Hopper cost
+    model's predictions, kept apart from the reference's ``cpu`` entries
+    (``jax.default_backend()`` on a CPU host: TPU-roofline winners) in the
+    file both packages share.  The default asks for the card and raises
+    without one."""
     dev = torch.device(device)
     if dev.type == "cpu":
-        return "cpu"
+        return "model-sm90"
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {str(device)!r}")
     if not torch.cuda.is_available():

@@ -12,7 +12,8 @@ engine consults it for its shapes).
 Location: ``$REPRO_AUTOTUNE_CACHE`` if set, else
 ``~/.cache/repro/autotune.json`` — the same file and variable as the
 reference, so winners from the card sit beside the TPU's in one file and
-the backend component (``cuda-sm90``, ``tpu``, ``cpu``) keeps them apart.
+the backend component (the port's ``cuda-sm90`` and ``model-sm90``, the
+reference's ``tpu`` and ``cpu``) keeps them apart.
 Writes are atomic (tmp + ``os.replace``) and merge-on-save: under an
 exclusive ``flock`` on a sidecar lock file, the cache file is re-read and
 unioned with the in-memory view before the replace, so two processes

@@ -8,17 +8,18 @@ exactly like it drives any other system's knobs.
 Per kernel: the knob space (the kernel's tile sizes, named as in the
 reference, plus ``num_warps``: the CUDA block is ``num_warps * 32``
 threads, and 0 leaves the block size to the C launcher, which takes the
-most warps the kernel's registers allow), an input builder for a problem
-signature, a call adapter, a roofline cost model and the block's
-shared-memory footprint.
+most warps the kernel's registers allow; flash attention has no
+``num_warps``, its bf16 kernel's warps being its warpgroups), an input
+builder for a problem signature, a call adapter, a roofline cost model
+and the block's shared-memory footprint.
 
 The cost model (``mode="model"``, what the CPU tests run) scores a config
 by a Hopper roofline at the H100 SXM datasheet figures (3.35 TB/s HBM,
-989 TFLOP/s dense bf16; 67 TFLOP/s f32 for the GLA kernel, which runs on
-the CUDA cores) plus a scheduling term per wave of blocks.  Its
-only ``inf`` is a block whose shared memory exceeds the opt-in maximum
-per block; ``smem_footprint`` is the single function behind that and
-behind the ``smem_fits`` feasibility predicate
+989 TFLOP/s dense bf16; 67 TFLOP/s f32 for the kernels that run on the
+CUDA cores: GLA, and flash attention in f32) plus a scheduling term per
+wave of blocks.  Its only ``inf`` is a block whose shared memory
+exceeds the opt-in maximum per block; ``smem_footprint`` is the single
+function behind that and behind the ``smem_fits`` feasibility predicate
 (``repro_torch.analysis.feasibility``), and the C launchers report the
 same number (``chip_smoke.py`` holds them equal).  On the card the
 kernel-under-tune times the kernel instead (``mode="time"``).
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.params import EnumParam, ParameterSpace
+from repro_torch.kernels.build import SMEM_PER_BLOCK_OPTIN
 
 __all__ = ["KernelSpace", "KERNELS", "shape_sig", "SMEM_PER_BLOCK_OPTIN"]
 
@@ -41,7 +43,6 @@ HBM_BYTES_PER_S = 3.35e12
 TENSOR_FLOPS_PER_S = 989e12  # dense bf16
 CUDA_CORE_F32_FLOPS_PER_S = 67e12  # f32 outside the tensor cores
 SM_COUNT = 132
-SMEM_PER_BLOCK_OPTIN = 232_448  # 227 KB a block may opt in to
 SMEM_PER_SM = 233_472           # 228 KB shared memory on an SM
 THREADS_PER_SM = 2048
 MAX_BLOCKS_PER_SM = 32
@@ -113,11 +114,12 @@ _WARPS = (0, 1, 2, 4, 8, 16, 32)  # 0 = the launcher's choice
 
 
 # -- flash attention ---------------------------------------------------------
+# No num_warps knob: the bf16 kernel's warps are its warpgroups (one a 64
+# query rows of the tile), and the f32 kernel keeps its launcher's choice.
 def _fa_space() -> ParameterSpace:
     return ParameterSpace([
         EnumParam("block_q", (16, 32, 64, 128), 64),
         EnumParam("block_kv", (16, 32, 64, 128), 32),
-        EnumParam("num_warps", (0, 2, 4, 8, 16), 0),
     ])
 
 
@@ -139,8 +141,7 @@ def _fa_call(inputs, config):
     q_offset = k.shape[1] - q.shape[1] if causal else 0
     return flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset,
                                 block_q=config["block_q"],
-                                block_kv=config["block_kv"],
-                                num_warps=config["num_warps"])
+                                block_kv=config["block_kv"])
 
 
 def _fa_smem(config, d, dtype):
@@ -164,16 +165,27 @@ def _fa_live_tiles(S, SK, bq, bk) -> int:
 
 
 def _fa_cost(config, d, dtype):
+    from repro_torch.kernels.flash_attention import tile_keys
+
     B, S, SK, H, D = d["B"], d["S"], d["SK"], d["H"], d["D"]
     bq, bk = min(config["block_q"], S), min(config["block_kv"], SK)
     live = B * H * _fa_live_tiles(S, SK, bq, bk)
     ib = _dtype_bytes(dtype)
-    flops = live * 4.0 * bq * bk * D
+    if dtype == "bfloat16":
+        # tensor cores; a warpgroup computes 64 rows and the instruction's
+        # keys over a head dim padded to 16, whatever the tile holds
+        n_wg = math.ceil(bq / 64)
+        rows, keys, dp = 64 * n_wg, tile_keys(bk), max(D, 16)
+        rate, warps = TENSOR_FLOPS_PER_S, 4 * n_wg
+    else:  # CUDA cores, at the launcher's block size
+        rows, keys, dp = bq, bk, D
+        rate, warps = CUDA_CORE_F32_FLOPS_PER_S, min(16, bq)
+    flops = live * 4.0 * rows * keys * dp
     hbm = (2.0 * B * S * H * D * ib          # q in, out
-           + 2.0 * live * bk * D * ib)       # streamed k/v tiles
+           + 2.0 * live * keys * D * ib)     # streamed k/v tiles
     n_blocks = B * H * math.ceil(S / bq)
-    return _roofline_s(flops, hbm, n_blocks, _warps(config, min(16, bq)),
-                       _fa_smem(config, d, dtype))
+    return _roofline_s(flops, hbm, n_blocks, warps,
+                       _fa_smem(config, d, dtype), flops_per_s=rate)
 
 
 # -- decode attention --------------------------------------------------------
@@ -406,7 +418,7 @@ KERNELS: Dict[str, KernelDef] = {
     # cache-prefill problems key separate autotune entries.
     "flash_attention": KernelDef(
         "flash_attention", ("B", "S", "SK", "H", "KV", "D"),
-        ("block_q", "block_kv", "num_warps"),
+        ("block_q", "block_kv"),
         _fa_space, _fa_inputs, _fa_call, _fa_cost, _fa_smem),
     "decode_attention": KernelDef(
         "decode_attention", ("B", "S", "H", "KV", "D"),

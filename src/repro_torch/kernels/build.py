@@ -25,7 +25,8 @@ from typing import Dict, NamedTuple, Sequence
 import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "SOURCES", "DTYPE_CODE",
-           "Built", "build", "build_all", "load", "nvcc_path"]
+           "SMEM_PER_BLOCK_OPTIN", "Built", "build", "build_all", "load",
+           "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -36,6 +37,8 @@ SOURCES = ("paged_attention", "flash_attention", "decode_attention",
            "rmsnorm", "gla")
 # the dtype argument of every kernel's C interface
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the shared memory one block may opt in to on sm_90 (227 KB)
+SMEM_PER_BLOCK_OPTIN = 232_448
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

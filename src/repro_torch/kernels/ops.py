@@ -33,11 +33,14 @@ __all__ = ["flash_attention", "flash_decode", "paged_flash_decode",
 # num_warps 0 leaves the CUDA block size to each kernel's launcher, which
 # takes the most warps the kernel's registers allow (bounded by the
 # tile's rows or entries); the tile sizes are each kernel space's default.
+# Flash attention's default is the fastest tile pair of the card's bf16
+# grid at Gemma-7B's train_4k among those that fit a block in both dtypes
+# at D=256 (PERF.md); it has no num_warps knob.
 # pages_per_block is the pool's group size: the serve engine resolves it
 # when it lays the pool out (the allocator group IS the kernel's page
 # tile); only num_warps resolves here.
 DEFAULT_BLOCKS: Dict[str, Dict[str, Any]] = {
-    "flash_attention": {"block_q": 64, "block_kv": 32, "num_warps": 0},
+    "flash_attention": {"block_q": 64, "block_kv": 32},
     "decode_attention": {"block_kv": 256, "num_warps": 0},
     "paged_attention": {"pages_per_block": 4, "num_warps": 0},
     "rmsnorm": {"block_rows": 4, "num_warps": 0},
@@ -88,8 +91,7 @@ def _resolve(kernel: str, dims: Dict[str, int], dtype: torch.dtype,
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0, block_q: Optional[int] = None,
-                    block_kv: Optional[int] = None,
-                    num_warps: Optional[int] = None):
+                    block_kv: Optional[int] = None):
     """GQA attention: q (B, Sq, H, D), k and v (B, Sk, KV, D) ->
     (B, Sq, H, D) in q's dtype."""
     B, S, H, D = q.shape
@@ -99,12 +101,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         "flash_attention",
         {"B": B, "S": S, "SK": k.shape[1], "H": H, "KV": k.shape[2],
          "D": D}, q.dtype, q.device,
-        {"block_q": block_q, "block_kv": block_kv, "num_warps": num_warps})
+        {"block_q": block_q, "block_kv": block_kv})
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 q_offset=q_offset,
                                 block_q=blocks["block_q"],
-                                block_kv=blocks["block_kv"],
-                                num_warps=blocks["num_warps"])
+                                block_kv=blocks["block_kv"])
 
 
 def rmsnorm(x, scale, *, eps: float = 1e-6,

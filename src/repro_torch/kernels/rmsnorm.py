@@ -1,10 +1,14 @@
 """Fused RMSNorm: the hand-written CUDA kernel, its wrapper and its plain
 PyTorch version.
 
-Counterpart of ``repro.kernels.rmsnorm``.  The CUDA kernel
-(``csrc/rmsnorm.cu``, which documents its design and bound) normalizes
+Counterpart of ``repro.kernels.rmsnorm``.  The CUDA kernels
+(``csrc/rmsnorm.cu``, which documents their design and bound) normalize
 each row of an (..., d) tensor in one warp: f32 statistics, output cast
-back to x's dtype.
+back to x's dtype.  Where d is a multiple of a 16-byte vector and the
+tensors are 16-byte aligned (every model shape, up to 8192 bf16 or 4096
+f32 elements a row), the row stays in the warp's registers between its
+one read and its write; any other row takes the loop kernel, which reads
+it twice.
 
 ``rmsnorm_cuda`` launches the kernel for CUDA tensors and runs
 ``ref.rmsnorm_ref`` for CPU tensors; it counts its kernel launches in
@@ -28,7 +32,7 @@ NUM_WARPS = (1, 2, 4, 8, 16, 32)
 
 def smem_bytes() -> int:
     """Shared memory of one block: none (a row lives in one warp's
-    registers).  The library reports the compiled kernel's own figure
+    registers, the scale is read through L1).  The library reports the compiled kernel's own figure
     (``repro_rmsnorm_smem_bytes``); ``chip_smoke.py`` holds the two
     equal."""
     return 0
@@ -81,9 +85,9 @@ def rmsnorm_cuda(
     dtype, statistics in f32.
 
     ``block_rows`` is the rows a block owns; ``num_warps`` sets the CUDA
-    block size (one row per warp at a time), None (or 0) lets the
-    launcher take the most warps its registers allow, at most
-    ``block_rows``.  CUDA tensors launch the kernel (or raise); CPU
+    block size (one row per warp at a time), at most the warps the
+    kernel's registers allow; None (or 0) lets the launcher take that
+    most, at most ``block_rows``.  CUDA tensors launch the kernel (or raise); CPU
     tensors run ``rmsnorm_ref``.  Nothing falls back from one to the
     other.
     """

@@ -9,11 +9,13 @@ launcher), on the CPU with the Hopper cost model.
   state does not fit a block.
 * The cache key format is the reference's; an entry either package
   writes to one file the other reads back; the backend component keeps
-  ``cpu``, ``tpu`` and ``cuda-sm90`` entries apart.
+  the reference's ``cpu`` and ``tpu`` entries and the port's
+  ``cuda-sm90`` and ``model-sm90`` (its cost model) apart.
 * ``kernels.ops`` resolves explicit > tuned > default, and drops its memo
   when the cache is written.
 * ``python -m repro_torch.launch.tune --tune-kernels --device cpu``
-  persists the four kernels' entries under backend ``cpu``.
+  persists the four kernels' entries under backend ``model-sm90`` and
+  leaves the reference's ``cpu`` entries as they were.
 """
 import dataclasses
 import itertools
@@ -79,6 +81,23 @@ def test_feasible_iff_finite_cost(kernel, dtype, dims):
         assert n_infeasible > 0  # 128-row tiles at D=256 do not fit
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kernel,dims", [
+    ("flash_attention", {"B": 1, "S": 4096, "SK": 4096, "H": 16, "KV": 16,
+                         "D": 256}),   # Gemma-7B train_4k
+    ("flash_attention", {"B": 1, "S": 4096, "SK": 4096, "H": 32, "KV": 32,
+                         "D": 64}),    # Zamba2-1.2B's shared block
+    ("rmsnorm", {"ROWS": 4096, "D": 3072}),  # Gemma-7B d_model
+    ("rmsnorm", {"ROWS": 4096, "D": 2048}),  # Zamba2-1.2B d_model
+], ids=["flash-gemma", "flash-zamba2", "rmsnorm-gemma", "rmsnorm-zamba2"])
+def test_redesigned_defaults_fit_both_dtypes(kernel, dims, dtype):
+    """The default flash and RMSNorm configs launch at Gemma-7B's and
+    Zamba2-1.2B's dims in both dtypes: feasible, at a finite cost."""
+    default = ops.DEFAULT_BLOCKS[kernel]
+    assert kernel_feasibility(kernel, dims, dtype)(default)
+    assert math.isfinite(KERNELS[kernel].model_cost(default, dims, dtype))
+
+
 @pytest.mark.parametrize("kernel", sorted(KERNELS))
 def test_space_defaults_are_the_ops_defaults(kernel):
     space = KernelSpace(kernel).space()
@@ -128,7 +147,8 @@ def test_ops_gla_resolves_the_cache_but_the_model_passes_its_chunk(
 
     dims = {"B": 1, "S": 32, "H": 2, "DK": 8, "DV": 8}
     autotune.default_cache().put("gla", autotune.shape_sig(dims), "float32",
-                                 "cpu", {"chunk": 16, "num_warps": 4}, 1.0)
+                                 "model-sm90", {"chunk": 16, "num_warps": 4},
+                                 1.0)
     assert ops._resolve("gla", dims, torch.float32, "cpu",
                         {"chunk": None, "num_warps": None}) == {
         "chunk": 16, "num_warps": 4}
@@ -160,6 +180,8 @@ def test_entries_cross_read_and_backends_stay_apart(tmp_cache):
                                  {"block_kv": 64, "num_warps": 8}, 2.0)
     jautotune.default_cache().put("decode_attention", sig, dt, "cpu",
                                   {"block_kv": 128}, 3.0)
+    autotune.default_cache().put("decode_attention", sig, dt, "model-sm90",
+                                 {"block_kv": 256, "num_warps": 0}, 4.0)
     fresh = AutotuneCache(tmp_cache)
     jfresh = jautotune.AutotuneCache(tmp_cache)
     for cache in (fresh, jfresh):
@@ -170,7 +192,10 @@ def test_entries_cross_read_and_backends_stay_apart(tmp_cache):
                                                  "num_warps": 8}
         assert cache.get_config("decode_attention", sig, dt, "cpu") == \
             {"block_kv": 128}
-    assert len(json.load(open(tmp_cache))) == 3
+        assert cache.get_config("decode_attention", sig, dt,
+                                "model-sm90") == {"block_kv": 256,
+                                                  "num_warps": 0}
+    assert len(json.load(open(tmp_cache))) == 4
 
 
 def test_schema_migration_matches_reference(tmp_cache):
@@ -188,7 +213,8 @@ def test_schema_migration_matches_reference(tmp_cache):
 
 
 def test_backend_name():
-    assert autotune.backend_name("cpu") == "cpu"
+    # the cost model's key, never the reference's "cpu"
+    assert autotune.backend_name("cpu") == "model-sm90"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             autotune.backend_name()
@@ -197,26 +223,24 @@ def test_backend_name():
 def test_ops_resolve_explicit_over_tuned_over_default(tmp_cache):
     dims = {"B": 1, "S": 32, "SK": 32, "H": 2, "KV": 2, "D": 16}
     default = ops.DEFAULT_BLOCKS["flash_attention"]
+    unset = {"block_q": None, "block_kv": None}
     assert ops._resolve("flash_attention", dims, torch.float32, "cpu",
-                        {"block_q": None, "block_kv": None,
-                         "num_warps": None}) == default
+                        unset) == default
+    # an entry tuned before flash lost its num_warps knob keeps resolving
+    # its tiles
     autotune.default_cache().put(
-        "flash_attention", autotune.shape_sig(dims), "float32", "cpu",
+        "flash_attention", autotune.shape_sig(dims), "float32", "model-sm90",
         {"block_q": 16, "block_kv": 128, "num_warps": 8}, 1.0)
     # the write dropped the memo: the tuned entry now wins ...
     assert ops._resolve("flash_attention", dims, torch.float32, "cpu",
-                        {"block_q": None, "block_kv": None,
-                         "num_warps": None}) == {
-        "block_q": 16, "block_kv": 128, "num_warps": 8}
+                        unset) == {"block_q": 16, "block_kv": 128}
     # ... knob by knob under an explicit argument
     assert ops._resolve("flash_attention", dims, torch.float32, "cpu",
-                        {"block_q": 32, "block_kv": None,
-                         "num_warps": None}) == {
-        "block_q": 32, "block_kv": 128, "num_warps": 8}
+                        dict(unset, block_q=32)) == {"block_q": 32,
+                                                     "block_kv": 128}
     # another dtype or backend keys another entry
     assert ops._resolve("flash_attention", dims, torch.bfloat16, "cpu",
-                        {"block_q": None, "block_kv": None,
-                         "num_warps": None}) == default
+                        unset) == default
 
 
 def test_ops_memoize_until_a_write(tmp_cache, monkeypatch):
@@ -235,7 +259,7 @@ def test_ops_memoize_until_a_write(tmp_cache, monkeypatch):
         ops.rmsnorm(x, s)
     assert calls == ["rmsnorm"]
     autotune.default_cache().put("rmsnorm", autotune.shape_sig(dims),
-                                 "float32", "cpu",
+                                 "float32", "model-sm90",
                                  {"block_rows": 8, "num_warps": 2}, 1.0)
     ops.rmsnorm(x, s)
     assert calls == ["rmsnorm", "rmsnorm"]
@@ -246,7 +270,7 @@ def test_autotune_kernel_on_the_cost_model(tmp_cache):
                                    {"B": 8, "S": 2048, "H": 16, "KV": 16,
                                     "D": 256}, dtype="bfloat16", budget=6,
                                    device="cpu")
-    assert res["mode"] == "model" and res["backend"] == "cpu"
+    assert res["mode"] == "model" and res["backend"] == "model-sm90"
     assert res["n_tests"] == 6 and res["value"] <= res["default_value"]
     assert autotune.ensure_tuned(
         "decode_attention", {"B": 8, "S": 2048, "H": 16, "KV": 16,
@@ -263,9 +287,44 @@ def test_tune_launcher_persists_four_cpu_entries(tmp_cache, capsys):
     keys = sorted(json.load(open(tmp_cache)))
     assert [k.split("|")[1] for k in keys] == [
         "decode_attention", "flash_attention", "paged_attention", "rmsnorm"]
-    assert all(k.split("|")[4] == "cpu" for k in keys)
+    assert all(k.split("|")[4] == "model-sm90" for k in keys)
     assert "B1_D256_H16_KV16_S4096_SK4096" in keys[1]
     assert "D3072_ROWS4096" in keys[3]
+
+
+def test_port_tune_leaves_the_reference_cpu_entries_byte_for_byte(
+        tmp_cache):
+    """A port cost-model tune into a file that holds the reference's
+    ``cpu`` winners for the same (kernel, signature, dtype) writes its
+    own ``model-sm90`` entries beside them and leaves each reference
+    entry as it was, byte for byte."""
+    from repro_torch.launch.tune import main
+
+    sigs = {"flash_attention": "B1_D256_H16_KV16_S4096_SK4096",
+            "rmsnorm": "D3072_ROWS4096"}
+    jcache = jautotune.default_cache()
+    jcache.put("flash_attention", sigs["flash_attention"], "bfloat16", "cpu",
+               {"block_q": 128, "block_kv": 128}, 1.5)
+    jcache.put("rmsnorm", sigs["rmsnorm"], "bfloat16", "cpu",
+               {"block_rows": 8}, 2.5)
+
+    def reference_entries():
+        raw = json.load(open(tmp_cache))
+        return {k: json.dumps(v, sort_keys=True) for k, v in raw.items()
+                if k.split("|")[4] == "cpu"}
+
+    before = reference_entries()
+    assert len(before) == 2
+    assert main(["--arch", "gemma-7b", "--shape", "train_4k",
+                 "--tune-kernels", "--kernel-budget", "3",
+                 "--device", "cpu"]) == 0
+    assert reference_entries() == before
+    keys = json.load(open(tmp_cache))
+    assert sum(k.split("|")[4] == "model-sm90" for k in keys) == 4
+    fresh = jautotune.AutotuneCache(tmp_cache)
+    assert fresh.get_config("flash_attention", sigs["flash_attention"],
+                            "bfloat16", "cpu") == {"block_q": 128,
+                                                   "block_kv": 128}
 
 
 @pytest.mark.parametrize("argv,match", [

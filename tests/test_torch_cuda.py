@@ -145,6 +145,44 @@ def test_flash_attention_matches_plain_version(card, dtype, B, S, SK, H, KV,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("block_kv", fa.TILE_KEYS)
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+@pytest.mark.parametrize("B,S,SK,H,KV,causal,window,q_offset,block_q", [
+    (2, 100, 130, 4, 2, True, 0, 30, 128),   # ragged Sq and Sk, q_offset
+    (1, 70, 90, 4, 1, True, 24, 20, 32),     # a window, a small tile
+    (1, 48, 40, 2, 2, False, 0, 0, 64),      # non-causal, Sk < block_kv
+], ids=["ragged-offset", "window", "non-causal"])
+def test_flash_tensor_core_kernel_every_head_dim_and_key_tile(
+        card, D, block_kv, B, S, SK, H, KV, causal, window, q_offset,
+        block_q):
+    """The bf16 tensor-core kernel at every D it takes and every key tile
+    (wgmma N) it is built for, against ``attention_ref``; D=256 at 128
+    keys needs more shared memory than a block has, and is refused."""
+    q = _randn((B, S, H, D), torch.bfloat16, 1)
+    k = _randn((B, SK, KV, D), torch.bfloat16, 2)
+    v = _randn((B, SK, KV, D), torch.bfloat16, 3)
+
+    def call():
+        return ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, block_q=block_q,
+                                   block_kv=block_kv)
+
+    if fa.smem_bytes(D, "bfloat16", min(block_q, S),
+                     min(block_kv, SK)) > autotune.smem_limit("cuda"):
+        with pytest.raises(ValueError, match="shared memory"):
+            call()
+        return
+    before = fa.flash_attention_cuda.launches
+    got = call()
+    want = attention_ref(q, k, v, causal=causal, window=window,
+                         q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches == before + 1
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,KV,D,bkv", [
     (1, 32, 2, 2, 8, 16),
@@ -187,6 +225,24 @@ def test_rmsnorm_matches_plain_version(card, dtype, shape, block_rows,
     assert rn.rmsnorm_cuda.launches == before + 1
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale_dtype", ["f32", "x"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (64, 3072),   # registers: 12 (bf16) or 24 (f32) vectors a lane
+    (9, 2048),    # registers, fewer rows than a block
+    (64, 3002),   # the loop: d not a multiple of a 16-byte vector
+    (4, 10240),   # the loop: a row too long for the registers
+], ids=["reg-3072", "reg-2048", "loop-3002", "loop-10240"])
+def test_rmsnorm_register_and_loop_paths(card, shape, dtype, scale_dtype):
+    x = _randn(shape, dtype, 1)
+    s = _randn((shape[-1],), torch.float32 if scale_dtype == "f32" else dtype,
+               2)
+    got = ops.rmsnorm(x, s)
+    torch.testing.assert_close(got.float(), rmsnorm_ref(x, s).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
 
 
 @pytest.mark.cuda

@@ -195,11 +195,12 @@ def test_per_request_provenance(tiny):
 @pytest.mark.parametrize("kv_pages", [None, 5], ids=["auto-pool", "tight"])
 def test_autotune_engine_adopts_seeded_group_size_like_reference(
         tiny, tmp_path, monkeypatch, kv_pages):
-    """A paged_attention winner seeded in one cache file (backend cpu,
-    pages_per_block=2) is adopted by both engines with autotune on: the
-    same group size (clamped alike when the page budget is tight), the
-    same re-keyed runtime entry, the same tokens and decode steps.  The
-    cost models differ between the packages, so no tuning outcome is
+    """A paged_attention winner (pages_per_block=2) seeded in one cache
+    file under each package's own CPU key (the reference's ``cpu``, the
+    port's ``model-sm90``) is adopted by both engines with autotune on:
+    the same group size (clamped alike when the page budget is tight),
+    the same re-keyed runtime entry, the same tokens and decode steps.
+    The cost models differ between the packages, so no tuning outcome is
     compared."""
     from repro import autotune as jautotune
     from repro_torch import autotune
@@ -213,9 +214,10 @@ def test_autotune_engine_adopts_seeded_group_size_like_reference(
              autotune_budget=3, kv_cache_pages=kv_pages)
     dims = {"B": 2, "S": 40, "H": TINY.padded_heads,
             "KV": TINY.n_kv_heads, "D": TINY.head_dim_}
-    autotune.default_cache().put(
-        "paged_attention", autotune.shape_sig(dims), TINY.compute_dtype,
-        "cpu", {"pages_per_block": 2}, 1.0)
+    for cache, backend in ((jautotune.default_cache(), "cpu"),
+                           (autotune.default_cache(), "model-sm90")):
+        cache.put("paged_attention", autotune.shape_sig(dims),
+                  TINY.compute_dtype, backend, {"pages_per_block": 2}, 1.0)
     prompts, max_new = PROMPTS[:4], MAX_NEW[:4]
     got_eng = ServeEngine(model, params, ServeConfig(**kw), device="cpu")
     got = got_eng.generate(prompts, max_new)

@@ -194,7 +194,8 @@ def test_ops_resolves_explicit_over_default(tmp_cache):
     assert ops._resolve("paged_attention", dims, torch.float32, "cpu",
                         {"num_warps": 8}) == dict(default, num_warps=8)
     autotune.default_cache().put("paged_attention",
-                                 autotune.shape_sig(dims), "float32", "cpu",
+                                 autotune.shape_sig(dims), "float32",
+                                 "model-sm90",
                                  {"pages_per_block": 2, "num_warps": 4}, 1.0)
     assert ops._resolve("paged_attention", dims, torch.float32, "cpu",
                         {"num_warps": None}) == {"pages_per_block": 2,
@@ -317,11 +318,12 @@ def test_plain_versions_match_reference_oracles():
 
 
 def test_smem_footprints():
-    """The figures the C launchers report, by formula: the flash kernel's
-    f32 query tile, accumulator and row state plus padded K/V tiles; the
-    decode kernels' per-warp and merged softmax state."""
+    """The figures the C launchers report, by formula: the bf16 flash
+    kernel's aligned Q tile, two K/V stages and barriers, the f32 flash
+    kernel's f32 query tile, accumulator and row state plus padded K/V
+    tiles; the decode kernels' per-warp and merged softmax state."""
     assert fa.smem_bytes(256, "bfloat16", 64, 32) == (
-        (2 * 64 * 256 + 2 * 64) * 4 + 2 * 32 * 258 * 2)
+        1024 + 64 * 256 * 2 + 4 * 32 * 256 * 2 + 64)
     assert fa.smem_bytes(8, "float32", 16, 16) == (
         (2 * 16 * 8 + 2 * 16) * 4 + 2 * 16 * 9 * 4)
     assert fd.smem_bytes(16, 16, 256) == (64 + 256 + 2) * 4
@@ -329,15 +331,36 @@ def test_smem_footprints():
     assert rn.smem_bytes() == 0
 
 
+@pytest.mark.parametrize("D,block_q,block_kv,bf16_bytes", [
+    # 1024 alignment slack + Q (64 rows a warpgroup) + 2 x (K + V) at the
+    # instruction's key tile + 64 bytes of barriers; D padded to 16
+    (256, 64, 32, 1024 + 64 * 256 * 2 + 4 * 32 * 256 * 2 + 64),
+    (256, 128, 64, 1024 + 128 * 256 * 2 + 4 * 64 * 256 * 2 + 64),
+    (256, 64, 128, 1024 + 64 * 256 * 2 + 4 * 128 * 256 * 2 + 64),
+    (64, 100, 70, 1024 + 128 * 64 * 2 + 4 * 128 * 64 * 2 + 64),
+    (64, 40, 16, 1024 + 64 * 64 * 2 + 4 * 16 * 64 * 2 + 64),
+    (8, 16, 5, 1024 + 64 * 16 * 2 + 4 * 16 * 16 * 2 + 64),
+], ids=["gemma-default", "gemma-128x64", "gemma-128keys", "ragged",
+        "zamba-16keys", "d8"])
+def test_flash_smem_bytes_bf16_design_and_f32(D, block_q, block_kv,
+                                              bf16_bytes):
+    """bf16: the tensor-core design's footprint, the key tile rounded up
+    to the instruction's N; f32: today's CUDA-core kernel's."""
+    assert fa.smem_bytes(D, "bfloat16", block_q, block_kv) == bf16_bytes
+    assert fa.smem_bytes(D, "float32", block_q, block_kv) == (
+        (2 * block_q * D + 2 * block_q) * 4 + 2 * block_kv * (D + 1) * 4)
+    assert fa.tile_keys(block_kv) == max(16, 1 << (block_kv - 1).bit_length())
+
+
 @pytest.mark.parametrize("call,match", [
     (lambda: fa._check(torch.zeros(1, 4, 2, 24), torch.zeros(1, 4, 2, 24),
-                       torch.zeros(1, 4, 2, 24), 4, 4, None), "head dim"),
+                       torch.zeros(1, 4, 2, 24), 4, 4), "head dim"),
     (lambda: fa._check(torch.zeros(1, 4, 3, 16), torch.zeros(1, 4, 2, 16),
-                       torch.zeros(1, 4, 2, 16), 4, 4, None), "multiple"),
+                       torch.zeros(1, 4, 2, 16), 4, 4), "multiple"),
     (lambda: fa._check(torch.zeros(1, 4, 2, 16), torch.zeros(1, 4, 2, 16),
-                       torch.zeros(1, 4, 2, 16), 4, 256, None), "block_kv"),
+                       torch.zeros(1, 4, 2, 16), 4, 256), "block_kv"),
     (lambda: fa._check(torch.zeros(1, 4, 2, 16), torch.zeros(1, 4, 2, 16),
-                       torch.zeros(1, 4, 2, 16).double(), 4, 4, None),
+                       torch.zeros(1, 4, 2, 16).double(), 4, 4),
      "share one dtype"),
     (lambda: fd._check(torch.zeros(2, 4, 16), torch.zeros(2, 8, 2, 16),
                        torch.zeros(2, 8, 2, 16),
@@ -349,8 +372,16 @@ def test_smem_footprints():
      "must be"),
     (lambda: rn._check(torch.zeros(4, 8), torch.zeros(8).bfloat16(), 4,
                        None), "scale must be"),
+    (lambda: fa._check(*[torch.zeros(1 + 64 * 2 * 16, dtype=torch.bfloat16)
+                         [1:].view(1, 64, 2, 16)] * 3, 64, 32),
+     "16-byte aligned"),
+    (lambda: fa._check(*[torch.zeros(1, 256, 2, 16, dtype=torch.bfloat16)]
+                       * 3, 256, 32), "block_q"),
+    (lambda: fa._check(*[torch.zeros(1, 256, 2, 256, dtype=torch.bfloat16)]
+                       * 3, 64, 128), "shared memory"),
 ], ids=["fa-head-dim", "fa-gqa", "fa-block-kv", "fa-dtype", "fd-kv-len",
-        "fd-warps", "rn-scale-shape", "rn-scale-dtype"])
+        "fd-warps", "rn-scale-shape", "rn-scale-dtype", "fa-bf16-align",
+        "fa-bf16-block-q", "fa-bf16-smem"])
 def test_new_wrappers_reject_what_the_kernels_do_not_take(call, match):
     """The CUDA launch paths validate their inputs before any launch."""
     with pytest.raises((ValueError, TypeError), match=match):
