@@ -97,6 +97,7 @@ DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 F32_FLOPS_PER_S = 67e12  # f32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # dense TF32 on the tensor cores
 # the CPU tests' tolerances (the reference kernel tests' TOL)
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # flash attention at the main-path shapes (S = 4096), beside TOL: an
@@ -770,16 +771,30 @@ def kernels_gla():
         lambda: gla_case(g, B, S, H, dk, dv, dtype, shared)), calls=8,
         replays=3)
     work = gla_work(B, S, H, dk, dv, chunk, q.element_size(), shared)
-    bound = bound_of(*work, flops_per_s=F32_FLOPS_PER_S)
+    # the record's bound: the rate the kernel computes at, three TF32
+    # products (3xTF32) a product on the tensor cores; beside it, printed
+    # only, the bound of f32 on the CUDA cores
+    tc_bound = bound_of(work[0], 3 * work[1], flops_per_s=TF32_FLOPS_PER_S)
+    f32_bound = bound_of(*work, flops_per_s=F32_FLOPS_PER_S)
+    L = min(chunk, S)
+    n_chunks, n_qt = -(-S // L), -(-L // gl.TILE)
+    hg = gl.head_group(q, k)
     print(f"  zamba2 mamba2 shape f32 (B={B} S={S} H={H} dk={dk} dv={dv} "
           f"chunk {chunk}, q and k broadcast, stride 0): kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, no library call, bound {bound[0]:.4f} ms "
-          f"by {bound[1]} ({work[0]} bytes, {work[1]} flops at f32's "
-          f"{F32_FLOPS_PER_S:.3g} flop/s; {bound[0] / ms * 100:.2f}% of the "
-          f"bound); {B * H} blocks for the card's "
+          f"plain {plain_ms:.4f} ms, no library call ({work[0]} bytes, "
+          f"{work[1]} flops); grids: chunk states {n_chunks * H * B} blocks, "
+          f"outputs {n_qt * n_chunks * H // hg * B} blocks ({hg} heads a "
+          f"block) for the card's "
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
-    clocks("zamba2 mamba2 shape", ms, dev_ms, bound)
-    return record("gla", errs[(zamba, dtype)], ms, plain_ms, bound, None,
+    print(f"  bounds: 3xTF32 on the tensor cores (3 x {work[1]} flops at "
+          f"{TF32_FLOPS_PER_S:.3g} flop/s, the record's) {tc_bound[0]:.4f} "
+          f"ms by {tc_bound[1]}, the kernel at "
+          f"{tc_bound[0] / dev_ms * 100:.2f}% of it device-only; beside it "
+          f"f32 on the CUDA cores ({F32_FLOPS_PER_S:.3g} flop/s) "
+          f"{f32_bound[0]:.4f} ms by {f32_bound[1]}, the kernel at "
+          f"{f32_bound[0] / dev_ms * 100:.2f}% of it")
+    clocks("zamba2 mamba2 shape (3xTF32 bound)", ms, dev_ms, tc_bound)
+    return record("gla", errs[(zamba, dtype)], ms, plain_ms, tc_bound, None,
                   dev_ms, None)
 
 
@@ -1386,7 +1401,10 @@ def phase_zamba():
           f"f32 superblock: hidden state relative error {rel32:.3e} > "
           f"{ZAMBA_F32_REL_TOL}")
     del k32, p32, p32_model, h32, ph32
-    gla_ms = sum(ms for k, ms in kernels.items() if "gla_kernel" in k)
+    gla_parts = {part: sum(ms for k, ms in kernels.items()
+                           if f"gla_{part}_kernel" in k)
+                 for part in ("state", "scan", "out")}
+    gla_ms = sum(gla_parts.values())
     flash_ms = sum(ms for k, ms in kernels.items()
                    if "flash_tc_kernel" in k or "flash_attention_kernel" in k)
     print(f"  zamba2-1.2b bf16 full width: {n_params} params (init "
@@ -1407,7 +1425,10 @@ def phase_zamba():
         print(f"  profiled forward: device busy {busy_ms:.4f} ms, idle share "
               f"{max(0.0, 1 - busy_ms / fwd_ms):.3f} of the unprofiled "
               f"{fwd_ms:.4f} ms; GLA kernel {gla_ms:.4f} ms "
-              f"({gla_ms / n_mamba:.4f} a launch), flash kernel "
+              f"({gla_ms / n_mamba:.4f} a launch: chunk states "
+              f"{gla_parts['state'] / n_mamba:.4f}, scan "
+              f"{gla_parts['scan'] / n_mamba:.4f}, outputs "
+              f"{gla_parts['out'] / n_mamba:.4f}), flash kernel "
               f"{flash_ms:.4f} ms; top kernels (ms):")
         for key, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
             print(f"    {ms:.4f}  {key[:100]}")

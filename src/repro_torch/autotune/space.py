@@ -6,23 +6,24 @@ tuner stack (LHS + RRS, budget, cache, report) drives kernel autotuning
 exactly like it drives any other system's knobs.
 
 Per kernel: the knob space (the kernel's tile sizes, named as in the
-reference, plus ``num_warps``: the CUDA block is ``num_warps * 32``
-threads, and 0 leaves the block size to the C launcher, which takes the
-most warps the kernel's registers allow; flash attention has no
-``num_warps``, its bf16 kernel's warps being its warpgroups), an input
-builder for a problem signature, a call adapter, a roofline cost model
-and the block's shared-memory footprint.
+reference, plus ``num_warps`` for paged decode and RMSNorm: the CUDA
+block is ``num_warps * 32`` threads, and 0 leaves the block size to the C
+launcher, which takes the most warps the kernel's registers allow; flash
+attention, dense decode and GLA have no ``num_warps``, their designs
+fixing the block), an input builder for a problem signature, a call
+adapter, a roofline cost model and the block's shared-memory footprint.
 
 The cost model (``mode="model"``, what the CPU tests run) scores a config
 by a Hopper roofline at the H100 SXM datasheet figures (3.35 TB/s HBM,
-989 TFLOP/s dense bf16; 67 TFLOP/s f32 for the kernels that run on the
-CUDA cores: GLA, and flash attention in f32) plus a scheduling term per
-wave of blocks.  Its only ``inf`` is a block whose shared memory
-exceeds the opt-in maximum per block; ``smem_footprint`` is the single
-function behind that and behind the ``smem_fits`` feasibility predicate
-(``repro_torch.analysis.feasibility``), and the C launchers report the
-same number (``chip_smoke.py`` holds them equal).  On the card the
-kernel-under-tune times the kernel instead (``mode="time"``).
+989 TFLOP/s dense bf16; 495 TFLOP/s TF32 for GLA's 3xTF32 products; 67
+TFLOP/s f32 for flash attention in f32, on the CUDA cores) plus a
+scheduling term per wave of blocks.  Its only ``inf`` is a block whose
+shared memory exceeds the opt-in maximum per block; ``smem_footprint``
+is the single function behind that and behind the ``smem_fits``
+feasibility predicate (``repro_torch.analysis.feasibility``), and the C
+launchers report the same number (``chip_smoke.py`` holds them equal).
+On the card the kernel-under-tune times the kernel instead
+(``mode="time"``).
 """
 from __future__ import annotations
 
@@ -189,10 +190,13 @@ def _fa_cost(config, d, dtype):
 
 
 # -- decode attention --------------------------------------------------------
+# No num_warps knob: the block is 256 threads by design (a token is scored
+# by the threads that split its row, P.V gives each thread two columns).
+# block_kv 0 (the default) leaves the split to the launcher, which cuts
+# the cache to fill the card (kernels.decode_attention.auto_block_kv).
 def _fd_space() -> ParameterSpace:
     return ParameterSpace([
-        EnumParam("block_kv", (32, 64, 128, 256, 512, 1024), 256),
-        EnumParam("num_warps", _WARPS, 0),
+        EnumParam("block_kv", (0, 32, 64, 128, 256, 512, 1024), 0),
     ])
 
 
@@ -209,28 +213,32 @@ def _fd_call(inputs, config):
     from repro_torch.kernels.decode_attention import flash_decode_cuda
 
     q, k, v, kv_len = inputs
-    return flash_decode_cuda(q, k, v, kv_len, block_kv=config["block_kv"],
-                             num_warps=config["num_warps"])
+    return flash_decode_cuda(q, k, v, kv_len, block_kv=config["block_kv"])
 
 
 def _fd_smem(config, d, dtype):
     from repro_torch.kernels.decode_attention import smem_bytes
 
-    return smem_bytes(d["H"], d["KV"], d["D"])
+    return smem_bytes(d["H"], d["KV"], d["D"], dtype)
 
 
 def _fd_cost(config, d, dtype):
+    from repro_torch.kernels.decode_attention import (THREADS, auto_block_kv,
+                                                      head_tile)
+
     B, S, H, KV, D = d["B"], d["S"], d["H"], d["KV"], d["D"]
-    bk = min(config["block_kv"], S)
-    n_split = math.ceil(S / bk)
     ib = _dtype_bytes(dtype)
+    bk = min(config["block_kv"] or auto_block_kv(B, S, H, KV, D, ib,
+                                                 SM_COUNT), S)
+    n_split = math.ceil(S / bk)
+    n_tiles = math.ceil(H // KV / head_tile(H, KV))
     flops = 4.0 * B * H * S * D
-    hbm = (2.0 * B * S * KV * D * ib        # the cache, once
-           + 2.0 * B * H * D * ib           # q in, out
-           + 2.0 * B * H * n_split * (D + 2) * 4)  # partials, each way
-    n_blocks = B * KV * math.ceil(H // KV / 8) * n_split + B * H
-    return _roofline_s(flops, hbm, n_blocks,
-                       _warps(config, max(1, min(32, bk // 8))),
+    hbm = (2.0 * B * S * KV * D * ib * n_tiles  # the cache, once a tile
+           + 2.0 * B * H * D * ib)              # q in, out
+    if n_split > 1:  # the partials, written and read back by the merge
+        hbm += 2.0 * B * H * n_split * (D + 2) * 4
+    n_blocks = B * KV * n_tiles * n_split
+    return _roofline_s(flops, hbm, n_blocks, THREADS // 32,
                        _fd_smem(config, d, dtype))
 
 
@@ -354,15 +362,16 @@ def _rn_cost(config, d, dtype):
 
 
 # -- gated linear attention -------------------------------------------------
-# a block walks its chunks in order: each chunk costs the scan's and the
-# sub-tiles' barriers whatever its length
-GLA_CHUNK_STEP_S = 1e-6
+# No num_warps knob: each of the kernel's three blocks is 128 threads by
+# design (four warps of m16n8k8 tensor-core tiles).
+TF32_FLOPS_PER_S = 495e12  # dense TF32 on the tensor cores
+# the three launches of a call, beyond the roofline
+GLA_LAUNCH_S = 3e-6
 
 
 def _gla_space() -> ParameterSpace:
     return ParameterSpace([
         EnumParam("chunk", (16, 32, 64, 128, 256), 128),
-        EnumParam("num_warps", (0, 2, 4, 8, 16), 0),
     ])
 
 
@@ -380,8 +389,7 @@ def _gla_call(inputs, config):
     from repro_torch.kernels.gla import gla_cuda
 
     q, k, v, g = inputs
-    return gla_cuda(q, k, v, g, chunk=config["chunk"],
-                    num_warps=config["num_warps"])[0]
+    return gla_cuda(q, k, v, g, chunk=config["chunk"])[0]
 
 
 def _gla_smem(config, d, dtype):
@@ -391,26 +399,31 @@ def _gla_smem(config, d, dtype):
 
 
 def _gla_cost(config, d, dtype):
-    from repro_torch.kernels.gla import SUB_TILE
+    from repro_torch.kernels.gla import TILE
 
     B, S, H, DK, DV = d["B"], d["S"], d["H"], d["DK"], d["DV"]
     L = min(config["chunk"], S)
     nc = math.ceil(S / L)
-    nt = math.ceil(L / min(SUB_TILE, L))
-    ts = min(SUB_TILE, L)
-    # per chunk: the (query, key) sub-tile pairs up to the diagonal, each
-    # a score tile and its product with v, plus the inter-chunk term and
-    # the state update (2 * L * DK * DV each), f32 on the CUDA cores
-    flops = B * H * nc * (nt * (nt + 1) / 2 * 2.0 * ts * ts * (DK + DV)
-                          + 4.0 * L * DK * DV)
+    nt = math.ceil(L / TILE)        # 64-row query (and key) tiles a chunk
+    dkp = 8 * math.ceil(DK / 8)
+    dvp = TILE * math.ceil(DV / TILE)
+    # per chunk and head, each product as the padded tiles run it: the
+    # chunk state (L x dk x dv), the inter-chunk term (the query tiles x
+    # dk x dv) and the (query, key) tile pairs up to the diagonal, a score
+    # tile (x dk) and its product with v (x dv); three TF32 products each
+    flops = 3 * 2.0 * B * H * nc * (
+        L * dkp * dvp + nt * TILE * dkp * dvp
+        + nt * (nt + 1) / 2 * TILE * TILE * (dkp + dvp))
     ib = _dtype_bytes(dtype)
     hbm = (B * S * H * (2 * DK + 2 * DV) * ib  # q, k, v in, y out
+           + B * S * H * DV * ib               # v read again for outputs
            + B * S * H * 4.0                   # the gates
-           + B * H * DK * DV * 4.0)            # the final state
-    return (_roofline_s(flops, hbm, B * H, _warps(config, 16),
-                        _gla_smem(config, d, dtype),
-                        flops_per_s=CUDA_CORE_F32_FLOPS_PER_S)
-            + nc * GLA_CHUNK_STEP_S)
+           + B * H * DK * DV * 4.0             # the final state
+           + 4 * B * H * nc * DK * DV * 4.0)   # chunk states, each way twice
+    n_blocks = B * H * nc * nt                 # the output kernel's grid
+    return (_roofline_s(flops, hbm, n_blocks, 4, _gla_smem(config, d, dtype),
+                        flops_per_s=TF32_FLOPS_PER_S)
+            + GLA_LAUNCH_S)
 
 
 KERNELS: Dict[str, KernelDef] = {
@@ -422,7 +435,7 @@ KERNELS: Dict[str, KernelDef] = {
         _fa_space, _fa_inputs, _fa_call, _fa_cost, _fa_smem),
     "decode_attention": KernelDef(
         "decode_attention", ("B", "S", "H", "KV", "D"),
-        ("block_kv", "num_warps"),
+        ("block_kv",),
         _fd_space, _fd_inputs, _fd_call, _fd_cost, _fd_smem),
     "paged_attention": KernelDef(
         "paged_attention", ("B", "S", "H", "KV", "D"),
@@ -434,7 +447,7 @@ KERNELS: Dict[str, KernelDef] = {
         _rn_space, _rn_inputs, _rn_call, _rn_cost, _rn_smem),
     "gla": KernelDef(
         "gla", ("B", "S", "H", "DK", "DV"),
-        ("chunk", "num_warps"),
+        ("chunk",),
         _gla_space, _gla_inputs, _gla_call, _gla_cost, _gla_smem),
 }
 

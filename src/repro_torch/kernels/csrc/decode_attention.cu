@@ -3,10 +3,11 @@
 // Replaces the Pallas TPU kernel `flash_decode_pallas`
 // (src/repro/kernels/decode_attention.py).  It computes the same function:
 // one new query token per sequence attends to the first kv_len entries of
-// a dense cache; kv_len is one scalar for the whole batch.  Online softmax
-// in f32, scale 1/sqrt(D), denominator clamped at 1e-30; cache entries at
-// or past kv_len are never read, so a cache filled to 2k of 32k streams 2k.
-// At kv_len == 0 it writes zeros, as the Pallas kernel does.
+// a dense cache; kv_len is one scalar for the whole batch, clamped to S.
+// Online softmax in f32, scale 1/sqrt(D), denominator clamped at 1e-30;
+// cache entries at or past kv_len are never scored, so a cache filled to
+// 2k of 32k streams 2k.  At kv_len == 0 it writes zeros, as the Pallas
+// kernel does.
 //
 //   q       (B, H, D)        bf16 or f32
 //   k, v    (B, S, KV, D)    q's dtype
@@ -14,191 +15,353 @@
 //           so the host never waits on it, or passed by value
 //   out     (B, H, D)        q's dtype
 //
-// Design.  The TPU kernel walks a sequential grid axis over blocks of
-// block_kv cache entries and carries the softmax state in VMEM scratch.
-// Here the cache axis is split across blocks instead (flash-decoding): one
-// block owns (split, KV head, batch row) and the block_kv entries of its
-// split, and a second small kernel merges the splits' partial states
-// (m, l, acc) in split order, so results do not change from run to run.
-// block_kv thus trades parallelism (B * KV * ceil(S / block_kv) blocks
-// fill the 132 SMs even at B = 1) against the partial states written and
-// merged.  Inside a block the code follows paged_attention.cu's kernel,
-// with dense addressing, a token range and a partial state for output (a
-// copy of its loop; the helpers, the head-tile plan and the instantiation
-// dispatch are shared through common.cuh): each warp takes every NW-th
-// entry of the split, its lanes split the head dim (one coalesced 16-byte
-// load a lane for bf16 at D=256), and all query heads of the KV head (GQA)
-// are scored against the row while it sits in registers, so each K/V byte
-// is read once.  The warps' states merge through shared memory in warp
-// order.
-//
 // Bound.  The kernel must read the K and V rows of the first kv_len
 // entries: 2 * B * kv_len * KV * D * sizeof(T) bytes, at most 3.35 TB/s on
 // an H100 SXM; its 4 * B * H * kv_len * D flops are far below the ridge
-// point, so it is bound by bytes.  The partial states add
-// B * H * ceil(S / block_kv) * (D + 2) * 4 bytes each way.
+// point, so it is bound by bytes.  What matters is how many bytes each SM
+// keeps in flight.
+//
+// Design.  The TPU kernel walks a sequential grid axis over blocks of
+// block_kv cache entries and carries the softmax state in VMEM scratch.
+// Here the cache axis is split across blocks (flash-decoding): one block
+// of 256 threads owns (split, KV head, head tile, batch row), the block_kv
+// entries of its split and all query heads of the tile (GQA), so each K/V
+// byte is read from device memory once for up to 8 query heads.
+//
+// - Staging.  The split's K and V stream through a ring of 4 stages in
+//   shared memory, a tile of TK tokens (8 KB of K and 8 KB of V: 16 tokens
+//   at D=256 bf16) a stage, copied by the Tensor Memory Accelerator: one
+//   thread issues each tile as one 2-d box of whole cache rows of one KV
+//   head (tokens x D, row stride KV * D), which completes on the stage's
+//   mbarrier, so up to 64 KB a block, three blocks an SM, are in flight
+//   while the blocks compute.  The next tile's copy starts when the block
+//   is done with the stage.
+// - Scores of a whole tile at once: a token is scored by kP neighbouring
+//   threads that split D in interleaved 16-byte chunks (so a warp's loads
+//   of unswizzled rows hit distinct bank groups; their partial dot
+//   products meet in shuffles), each scoring every query head of the tile
+//   from the K chunk it loaded, against the scaled query held in shared
+//   memory as f32.
+// - One max and one sum a tile and head (a warp a head), so the output
+//   accumulator is rescaled once a tile, not once a token.
+// - P.V: each thread owns two columns of D over a fixed set of the tile's
+//   tokens (every second one at D = 256), in two accumulator chains, so
+//   no accumulator is merged across warps inside the loop; at the end the
+//   token groups' sums meet in shared memory in a fixed order.
+// - The split merge is fused: each block writes its partial state
+//   (m, l, acc) to wrapper-owned scratch, and the last block of a (batch
+//   row, KV head, head tile) to finish, as an int32 counter in wrapper-
+//   owned scratch says, merges the partials in split order and resets the
+//   counter to 0, so the next launch (or replay of a captured graph)
+//   finds it at 0.  Results do not change from run to run.  A cache whose
+//   valid entries fit one split needs no merge: that block writes the
+//   output itself.
+//
+// The grid runs the KV heads of a split side by side, so the blocks in
+// flight read whole cache rows (KV * D elements) together.  block_kv
+// trades parallelism (B * KV * head tiles * ceil(S / block_kv) blocks)
+// against the partial states written and merged: B * H * ceil(kv_len /
+// block_kv) * (D + 2) * 4 bytes each way, through the L2.  The wrapper's
+// default (block_kv 0) takes the most splits that keep the grid at two
+// blocks an SM: block_kv 1024 at Gemma-7B's engine shape (B=8, S=2048,
+// 256 blocks) and 256 at B=1, S=4096 (256 blocks), one wave of the 396
+// (three an SM) the card holds at once.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kMaxWarps = 32;
+constexpr int kThreads = 256;
+constexpr int kStages = 4;        // K/V tiles in flight a block
+constexpr int kTileBytes = 8192;  // the most bytes of a K (V) tile
+constexpr int kAlign = 128;       // of a TMA box's shared-memory destination
 
-// One (split, KV head, head tile, batch row): the partial softmax state
-// of the split's entries for each of the tile's query heads.  VEC and GQ
-// as in paged_attention.cu.
-template <typename T, int VEC, int GQ>
-__global__ void decode_split_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const int* __restrict__ kv_len_ptr,
-    int kv_len_value, float* __restrict__ part_m,
-    float* __restrict__ part_l, float* __restrict__ part_acc, int seq,
-    int kv_heads, int head_dim, int gq, int n_tiles, int block_kv,
-    int n_split, float scale) {
-  const int split = blockIdx.x;
-  const int kvh = blockIdx.y / n_tiles;
-  const int h0 = (blockIdx.y - kvh * n_tiles) * GQ;
+// Compile-time geometry of one (dtype, head dim) instantiation.
+template <typename T, int D>
+struct DecShape {
+  static constexpr int kSize = int(sizeof(T));
+  static constexpr int kRow = D * kSize;  // bytes of a cache row
+  static constexpr int kTK =
+      kTileBytes / kRow < 128 ? kTileBytes / kRow : 128;  // tokens a tile
+  static constexpr int kTile = kTK * kRow;  // bytes of a K or V tile
+  static constexpr int kCE = 16 / kSize;    // elements of a 16-byte chunk
+  static constexpr int kChunks = D / kCE;   // chunks of a row
+  static constexpr int kP =                 // threads scoring one token
+      kThreads / kTK < kChunks ? kThreads / kTK : kChunks;
+  static constexpr int kScorers = kTK * kP;     // whole warps
+  static constexpr int kNC = D / 2;             // column pairs in P.V
+  static constexpr int kNTG = kThreads / kNC;   // token groups in P.V
+  static_assert(kScorers <= kThreads && kScorers % 32 == 0, "warps");
+  static_assert(kTK % 8 == 0 && kTile % kAlign == 0, "aligned stages");
+};
+
+// Bytes of the ring, which at the end also holds the token groups' sums.
+template <typename T, int D, int GQ>
+__host__ __device__ constexpr int ring_bytes() {
+  return kStages * 2 * DecShape<T, D>::kTile > 2 * kThreads * GQ * 4
+             ? kStages * 2 * DecShape<T, D>::kTile
+             : 2 * kThreads * GQ * 4;
+}
+
+// Dynamic shared memory of one block (the kernel has no static shared
+// memory): alignment slack, the K/V ring, the scaled query (f32), the
+// tile's scores, the softmax state (m, l, alpha, spare) a head, the
+// stages' barriers and the last-block flag.
+template <typename T, int D, int GQ>
+constexpr int smem_bytes() {
+  using C = DecShape<T, D>;
+  return kAlign + ring_bytes<T, D, GQ>() + GQ * D * 4 + GQ * C::kTK * 4 +
+         4 * GQ * 4 + kStages * 8 + 8;
+}
+
+template <typename T, int D, int GQ>
+__global__ void __launch_bounds__(kThreads) decode_kernel(
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const T* __restrict__ q,
+    const int* __restrict__ kv_len_ptr, int kv_len_value,
+    float* __restrict__ part_m, float* __restrict__ part_l,
+    float* __restrict__ part_acc, int* __restrict__ counters,
+    T* __restrict__ out, int seq, int kv_heads, int gq, int n_tiles,
+    int block_kv, int tk, int n_split, float scale) {
+  using C = DecShape<T, D>;
+  // the KV heads of a split side by side: whole cache rows together
+  const int split = blockIdx.y, head_block = blockIdx.x;
+  const int kvh = head_block / n_tiles;
+  const int h0 = (head_block - kvh * n_tiles) * GQ;
   const int b = blockIdx.z;
   const int n_heads = min(GQ, gq - h0);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int n_warps = blockDim.x >> 5;
-  const int d0 = lane * VEC;
-  const bool lane_on = d0 < head_dim;
-  const int H = kv_heads * gq;
-
-  __shared__ float s_m[kMaxWarps][GQ];
-  __shared__ float s_l[kMaxWarps][GQ];
-  __shared__ float s_acc[GQ][VEC * 32];
-  __shared__ float s_mx[GQ];
-  __shared__ float s_den[GQ];
-
-  float qv[GQ][VEC];
-#pragma unroll
-  for (int h = 0; h < GQ; ++h) {
-    if (h < n_heads && lane_on) {
-      const size_t row = (size_t)b * H + (size_t)kvh * gq + h0 + h;
-      load_f32<T, VEC>(q + row * head_dim + d0, qv[h]);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) qv[h][i] *= scale;
-    } else {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) qv[h][i] = 0.f;
-    }
-  }
-
-  float m[GQ], l[GQ], acc[GQ][VEC];
-#pragma unroll
-  for (int h = 0; h < GQ; ++h) {
-    m[h] = kNegInf;
-    l[h] = 0.f;
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[h][i] = 0.f;
-  }
+  const size_t row0 = ((size_t)b * kv_heads + kvh) * gq + h0;  // query row
+  const int tid = threadIdx.x;
 
   const int kv_len =
       min(max(kv_len_ptr ? *kv_len_ptr : kv_len_value, 0), seq);
+  if (kv_len == 0) {  // nothing to attend to: zeros, as the TPU kernel
+    if (split == 0)
+      for (int i = tid; i < n_heads * D; i += kThreads)
+        store_f32(0.f, out + row0 * D + i);
+    return;
+  }
+  const int n_active = (kv_len + block_kv - 1) / block_kv;
+  if (split >= n_active) return;  // past kv_len: not part of the merge
   const int t0 = split * block_kv;
   const int t1 = min(t0 + block_kv, kv_len);
-  const size_t tok_stride = (size_t)kv_heads * head_dim;
-  const T* k_row = k + (size_t)b * seq * tok_stride + (size_t)kvh * head_dim;
-  const T* v_row = v + (size_t)b * seq * tok_stride + (size_t)kvh * head_dim;
-  for (int tok = t0 + warp; tok < t1; tok += n_warps) {
-    const size_t off = (size_t)tok * tok_stride + d0;
-    float kr[VEC], vr[VEC];
-    if (lane_on) {
-      load_f32<T, VEC>(k_row + off, kr);
-      load_f32<T, VEC>(v_row + off, vr);
-    } else {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) kr[i] = vr[i] = 0.f;
-    }
-#pragma unroll
-    for (int h = 0; h < GQ; ++h) {
-      if (h >= n_heads) break;
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) s += qv[h][i] * kr[i];
-      s = warp_sum(s);
-      const float m_new = fmaxf(m[h], s);
-      const float alpha = expf(m[h] - m_new);
-      const float p = expf(s - m_new);
-      l[h] = l[h] * alpha + p;
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[h][i] = acc[h][i] * alpha + p * vr[i];
-      m[h] = m_new;
-    }
-  }
+  const int n_tile = (t1 - t0 + tk - 1) / tk;
 
-  if (lane == 0) {
-#pragma unroll
-    for (int h = 0; h < GQ; ++h) {
-      s_m[warp][h] = m[h];
-      s_l[warp][h] = l[h];
-    }
-  }
-  for (int i = threadIdx.x; i < GQ * VEC * 32; i += blockDim.x)
-    (&s_acc[0][0])[i] = 0.f;
-  __syncthreads();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const stages =
+      smem_raw + ((kAlign - (smem_addr(smem_raw) & (kAlign - 1))) &
+                  (kAlign - 1));
+  float* const qs = reinterpret_cast<float*>(stages + ring_bytes<T, D, GQ>());
+  float* const ps = qs + GQ * D;          // [GQ][kTK] scores, then p
+  float* const st = ps + GQ * C::kTK;     // [4][GQ]: m, l, alpha, spare
+  const uint32_t bar0 = smem_addr(st + 4 * GQ);
+  int* const flag = reinterpret_cast<int*>(st + 4 * GQ + 2 * kStages);
+  const uint32_t ring = smem_addr(stages);
 
-  // Merge the warps' states in warp order (deterministic).
-  if (threadIdx.x < GQ) {
-    const int h = threadIdx.x;
-    float mx = kNegInf;
-    for (int w = 0; w < n_warps; ++w) mx = fmaxf(mx, s_m[w][h]);
-    float den = 0.f;
-    for (int w = 0; w < n_warps; ++w) den += s_l[w][h] * expf(s_m[w][h] - mx);
-    s_mx[h] = mx;
-    s_den[h] = den;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(bar0 + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  for (int w = 0; w < n_warps; ++w) {
-    if (warp == w && lane_on) {
+  // one thread issues every copy: tile i of the split into stage i % kStages
+  auto load = [&](int i) {
+    const int s = i % kStages;
+    const uint32_t bar = bar0 + 8 * s;
+    const uint32_t kdst = ring + s * 2 * C::kTile;
+    mbar_expect_tx(bar, 2 * tk * C::kRow);
+    tma_load(kdst, &tm_k, bar, 0, kvh, t0 + i * tk, b);
+    tma_load(kdst + C::kTile, &tm_v, bar, 0, kvh, t0 + i * tk, b);
+  };
+  if (tid == 0)
+    for (int i = 0; i < kStages && i < n_tile; ++i) load(i);
+
+  for (int i = tid; i < GQ * D; i += kThreads) {
+    const int h = i / D;
+    qs[i] = h < n_heads ? to_f32(q[row0 * D + i]) * scale : 0.f;
+  }
+  if (tid < GQ) {
+    st[tid] = kNegInf;
+    st[GQ + tid] = 0.f;
+  }
+  __syncthreads();
+
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int sc_t = tid / C::kP;  // the token this thread scores
+  const int sc_p = tid % C::kP;  // its part of D
+  const int cp = tid % C::kNC;   // its column pair in P.V
+  const int tg = tid / C::kNC;   // its token group in P.V
+  float acc[2][GQ][2];  // even and odd tokens of the group: two chains
 #pragma unroll
-      for (int h = 0; h < GQ; ++h) {
-        const float c = expf(m[h] - s_mx[h]);
+  for (int u = 0; u < 2; ++u)
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) s_acc[h][d0 + i] += acc[h][i] * c;
+    for (int h = 0; h < GQ; ++h) acc[u][h][0] = acc[u][h][1] = 0.f;
+
+  for (int i = 0; i < n_tile; ++i) {
+    const int s = i % kStages;
+    const uint8_t* const kt = stages + s * 2 * C::kTile;
+    const uint8_t* const vt = kt + C::kTile;
+    const int valid = min(tk, t1 - (t0 + i * tk));
+    mbar_wait(bar0 + 8 * s, (i / kStages) & 1);
+
+    // scores of the tile's tokens for every head of the tile
+    float sc[GQ];
+#pragma unroll
+    for (int h = 0; h < GQ; ++h) sc[h] = 0.f;
+    if (tid < C::kScorers) {  // whole warps
+#pragma unroll
+      for (int c = 0; c < C::kChunks / C::kP; ++c) {
+        const int chunk = c * C::kP + sc_p;
+        float kf[C::kCE];
+        load_f32<T, C::kCE>(
+            reinterpret_cast<const T*>(kt + sc_t * C::kRow + chunk * 16),
+            kf);
+#pragma unroll
+        for (int h = 0; h < GQ; ++h) {
+          const float4* qh =
+              reinterpret_cast<const float4*>(qs + h * D + chunk * C::kCE);
+#pragma unroll
+          for (int e = 0; e < C::kCE / 4; ++e) {
+            const float4 qv = qh[e];
+            sc[h] += qv.x * kf[4 * e] + qv.y * kf[4 * e + 1] +
+                     qv.z * kf[4 * e + 2] + qv.w * kf[4 * e + 3];
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int o = C::kP / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int h = 0; h < GQ; ++h)
+        sc[h] += __shfl_xor_sync(0xffffffffu, sc[h], o);
+    if (sc_p == 0 && tid < C::kScorers)
+#pragma unroll
+      for (int h = 0; h < GQ; ++h)
+        ps[h * C::kTK + sc_t] = sc_t < valid ? sc[h] : -INFINITY;
+    __syncthreads();
+
+    // one max and one sum a head: p = exp(s - m_new), alpha for the rescale
+    for (int h = warp; h < GQ; h += kThreads / 32) {
+      float* const ph = ps + h * C::kTK;
+      float mx = -INFINITY;
+      for (int t = lane; t < C::kTK; t += 32) mx = fmaxf(mx, ph[t]);
+      mx = warp_max(mx);
+      const float m_old = st[h];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+      for (int t = lane; t < C::kTK; t += 32) {
+        const float p = expf(ph[t] - m_new);
+        ph[t] = p;
+        sum += p;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        st[h] = m_new;
+        st[GQ + h] = st[GQ + h] * alpha + sum;
+        st[2 * GQ + h] = alpha;
       }
     }
     __syncthreads();
-  }
 
-  for (int i = threadIdx.x; i < n_heads * head_dim; i += blockDim.x) {
-    const int h = i / head_dim;
-    const int d = i - h * head_dim;
-    const size_t row = (size_t)b * H + (size_t)kvh * gq + h0 + h;
-    const size_t slot = row * n_split + split;
-    if (d == 0) {
-      part_m[slot] = s_mx[h];
-      part_l[slot] = s_den[h];
+    // acc = acc * alpha + P.V over this thread's tokens and column pair
+#pragma unroll
+    for (int h = 0; h < GQ; ++h) {
+      const float alpha = st[2 * GQ + h];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        acc[u][h][0] *= alpha;
+        acc[u][h][1] *= alpha;
+      }
     }
-    part_acc[slot * head_dim + d] = s_acc[h][d];
+#pragma unroll 2
+    for (int t0_ = tg; t0_ < valid; t0_ += 2 * C::kNTG) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int t = t0_ + u * C::kNTG;
+        if (t >= valid) break;
+        float vf[2];
+        load_f32<T, 2>(reinterpret_cast<const T*>(
+                           vt + t * C::kRow + cp * 2 * C::kSize),
+                       vf);
+#pragma unroll
+        for (int h = 0; h < GQ; ++h) {
+          const float p = ps[h * C::kTK + t];
+          acc[u][h][0] += p * vf[0];
+          acc[u][h][1] += p * vf[1];
+        }
+      }
+    }
+    __syncthreads();  // the block is done with stage s and the scores
+    if (tid == 0 && i + kStages < n_tile) load(i + kStages);
   }
-}
 
-// One (query head, batch row): merge the splits' partial states in split
-// order.  A split past kv_len holds m = -1e30, l = 0, acc = 0 and adds
-// nothing; when every split is empty (kv_len == 0) the output is 0.
-template <typename T>
-__global__ void decode_combine_kernel(const float* __restrict__ part_m,
-                                      const float* __restrict__ part_l,
-                                      const float* __restrict__ part_acc,
-                                      T* __restrict__ out, int head_dim,
-                                      int n_split) {
-  const size_t row = blockIdx.x;
-  const float* pm = part_m + row * n_split;
-  const float* pl = part_l + row * n_split;
-  float mx = kNegInf;
-  for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, pm[s]);
-  float den = 0.f;
-  for (int s = 0; s < n_split; ++s) den += pl[s] * expf(pm[s] - mx);
-  const float inv = 1.f / fmaxf(den, 1e-30f);
-  for (int d = threadIdx.x; d < head_dim; d += blockDim.x) {
+  // the token groups' sums, in group order (every copy has landed and been
+  // read: the ring is free)
+  float* const red = reinterpret_cast<float*>(stages);  // [kNTG][GQ][D]
+#pragma unroll
+  for (int h = 0; h < GQ; ++h) {
+    red[(tg * GQ + h) * D + 2 * cp] = acc[0][h][0] + acc[1][h][0];
+    red[(tg * GQ + h) * D + 2 * cp + 1] = acc[0][h][1] + acc[1][h][1];
+  }
+  __syncthreads();
+  auto summed = [&](int i) {  // element i = h * D + d of the split's acc
     float a = 0.f;
-    for (int s = 0; s < n_split; ++s)
-      a += part_acc[(row * n_split + s) * head_dim + d] * expf(pm[s] - mx);
-    store_f32(a * inv, out + row * head_dim + d);
+    for (int g = 0; g < C::kNTG; ++g) a += red[g * GQ * D + i];
+    return a;
+  };
+
+  if (n_active == 1) {  // the only split: normalize and write
+    for (int i = tid; i < n_heads * D; i += kThreads)
+      store_f32(summed(i) / fmaxf(st[GQ + i / D], 1e-30f),
+                out + row0 * D + i);
+    return;
+  }
+
+  // the partial state (m, l, acc) of this split
+  for (int i = tid; i < n_heads * D; i += kThreads) {
+    const int h = i / D;
+    part_acc[((row0 + h) * n_split + split) * D + (i - h * D)] = summed(i);
+  }
+  if (tid < n_heads) {
+    part_m[(row0 + tid) * n_split + split] = st[tid];
+    part_l[(row0 + tid) * n_split + split] = st[GQ + tid];
+  }
+  __threadfence();  // the partials are visible device-wide ...
+  __syncthreads();
+  if (tid == 0) {   // ... before this split counts itself done
+    int* const ctr = counters + (size_t)b * kv_heads * n_tiles + head_block;
+    const bool last = atomicAdd(ctr, 1) == n_active - 1;
+    if (last) atomicExch(ctr, 0);  // ready for the next launch
+    *flag = last;
+  }
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+
+  // the last split to finish merges all of them, in split order
+  if (tid < n_heads) {
+    const float* pm = part_m + (row0 + tid) * n_split;
+    const float* pl = part_l + (row0 + tid) * n_split;
+    float mx = kNegInf;
+    for (int s = 0; s < n_active; ++s) mx = fmaxf(mx, __ldcg(pm + s));
+    float den = 0.f;
+    for (int s = 0; s < n_active; ++s)
+      den += __ldcg(pl + s) * expf(__ldcg(pm + s) - mx);
+    st[tid] = mx;
+    st[GQ + tid] = 1.f / fmaxf(den, 1e-30f);
+  }
+  __syncthreads();
+  for (int i = tid; i < n_heads * D; i += kThreads) {
+    const int h = i / D;
+    const size_t row = row0 + h;
+    const float* pm = part_m + row * n_split;
+    const float* pa = part_acc + row * n_split * D + (i - h * D);
+    float a = 0.f;
+    for (int s = 0; s < n_active; ++s)
+      a += __ldcg(pa + (size_t)s * D) * expf(__ldcg(pm + s) - st[h]);
+    store_f32(a * st[GQ + h], out + row0 * D + i);
   }
 }
 
@@ -207,81 +370,118 @@ struct DecodeLaunch {
   const int* kv_len_ptr;
   int kv_len_value;
   float *part_m, *part_l, *part_acc;
+  int* counters;
   void* out;
-  int batch, seq, kv_heads, head_dim, gq, block_kv, num_warps;
+  int batch, seq, kv_heads, head_dim, gq, block_kv;
   cudaStream_t stream;
 
-  template <typename T, int VEC, int GQ>
+  template <typename T, int D, int GQ>
   cudaError_t run() const {
-    int warps = num_warps;
-    if (warps == 0) {
-      // the most warps the registers allow, but at least 8 entries a warp
-      static int reg_warps = 0;  // a race only writes the same value twice
-      if (reg_warps == 0) {
-        const cudaError_t err = max_launchable_warps(
-            decode_split_kernel<T, VEC, GQ>, kMaxWarps, &reg_warps);
-        if (err != cudaSuccess) return err;
-      }
-      warps = reg_warps;
-      while (warps > 1 && warps * 8 > block_kv) warps >>= 1;
+    using C = DecShape<T, D>;
+    // tokens a copy brings: the tile, or the split rounded up to 8 rows
+    const int tk = min(C::kTK, (min(block_kv, seq) + 7) / 8 * 8);
+    const CUtensorMapDataType dt = sizeof(T) == 2
+                                       ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    // a box: tk whole cache rows of one KV head, laid out unswizzled
+    CUtensorMap tm_k, tm_v;
+    if (!tensor_map_4d(&tm_k, dt, C::kSize, k, D, kv_heads, seq, batch, D,
+                       tk, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+        !tensor_map_4d(&tm_v, dt, C::kSize, v, D, kv_heads, seq, batch, D,
+                       tk, CU_TENSOR_MAP_SWIZZLE_NONE))
+      return cudaErrorInvalidValue;
+    auto* kernel = decode_kernel<T, D, GQ>;
+    constexpr int bytes = smem_bytes<T, D, GQ>();
+    if (bytes > 48 * 1024) {  // above 48 KB a kernel must opt in
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err != cudaSuccess) return err;
     }
     const int n_tiles = (gq + GQ - 1) / GQ;
     const int n_split = (seq + block_kv - 1) / block_kv;
-    const dim3 grid(n_split, kv_heads * n_tiles, batch);
-    decode_split_kernel<T, VEC, GQ><<<grid, warps * 32, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), kv_len_ptr, kv_len_value, part_m, part_l,
-        part_acc, seq, kv_heads, head_dim, gq, n_tiles, block_kv, n_split,
+    const dim3 grid(kv_heads * n_tiles, n_split, batch);
+    kernel<<<grid, kThreads, bytes, stream>>>(
+        tm_k, tm_v, static_cast<const T*>(q), kv_len_ptr, kv_len_value,
+        part_m, part_l, part_acc, counters, static_cast<T*>(out), seq,
+        kv_heads, gq, n_tiles, block_kv, tk, n_split,
         1.0f / sqrtf((float)head_dim));
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    const int threads = head_dim < 32 ? 32 : head_dim;
-    decode_combine_kernel<T><<<batch * kv_heads * gq, threads, 0, stream>>>(
-        part_m, part_l, part_acc, static_cast<T*>(out), head_dim, n_split);
     return cudaGetLastError();
   }
 };
 
 struct DecodeSmem {
-  template <typename T, int VEC, int GQ>
+  template <typename T, int D, int GQ>
   int run() const {
-    return static_smem_bytes(decode_split_kernel<T, VEC, GQ>);
+    return smem_bytes<T, D, GQ>();
   }
 };
+
+// f.template run<T, D, GQ>() for (dtype, head_dim, tile); `bad` when no
+// instantiation matches.
+template <typename T, int D, typename F, typename R>
+R dispatch_tile(int tile, const F& f, R bad) {
+  switch (tile) {
+    case 1: return f.template run<T, D, 1>();
+    case 2: return f.template run<T, D, 2>();
+    case 4: return f.template run<T, D, 4>();
+    case 8: return f.template run<T, D, 8>();
+  }
+  return bad;
+}
+
+template <typename T, typename F, typename R>
+R dispatch_dim(int head_dim, int tile, const F& f, R bad) {
+  switch (head_dim) {
+    case 8: return dispatch_tile<T, 8>(tile, f, bad);
+    case 16: return dispatch_tile<T, 16>(tile, f, bad);
+    case 32: return dispatch_tile<T, 32>(tile, f, bad);
+    case 64: return dispatch_tile<T, 64>(tile, f, bad);
+    case 128: return dispatch_tile<T, 128>(tile, f, bad);
+    case 256: return dispatch_tile<T, 256>(tile, f, bad);
+  }
+  return bad;
+}
+
+template <typename F, typename R>
+R dispatch(int dtype, int head_dim, int tile, const F& f, R bad) {
+  if (dtype == 0) return dispatch_dim<float>(head_dim, tile, f, bad);
+  if (dtype == 1) return dispatch_dim<__nv_bfloat16>(head_dim, tile, f, bad);
+  return bad;
+}
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  kv_len_ptr: a device int32, or null
 // to use kv_len_value.  part_m, part_l: (B, H, ceil(S / block_kv)) f32
-// scratch; part_acc: the same with a trailing D.  num_warps: the block
-// size of the split kernel in warps (a power of two up to kMaxWarps), or
-// 0 for the most its registers allow, at least 8 entries a warp.  Returns
-// 0 on success, else a cudaError_t code (cudaErrorInvalidValue for a shape
-// the kernel does not take).  Launches on `stream`, does not synchronise.
+// scratch; part_acc: the same with a trailing D.  counters: at least
+// B * KV * ceil(H / KV / tile) int32, zero before the first launch; the
+// kernel leaves them at zero.  Returns 0 on success, else a cudaError_t
+// code (cudaErrorInvalidValue for a shape the kernel does not take).
+// Launches on `stream`, does not synchronise.
 extern "C" int repro_flash_decode(
     const void* q, const void* k, const void* v, const int* kv_len_ptr,
     int kv_len_value, float* part_m, float* part_l, float* part_acc,
-    void* out, int batch, int seq, int heads, int kv_heads, int head_dim,
-    int dtype, int block_kv, int num_warps, void* stream) {
+    int* counters, void* out, int batch, int seq, int heads, int kv_heads,
+    int head_dim, int dtype, int block_kv, void* stream) {
   int vec, tile;
-  if (batch < 1 || seq < 1 || block_kv < 1 || num_warps < 0 ||
-      num_warps > kMaxWarps || (num_warps & (num_warps - 1)) != 0 ||
+  if (batch < 1 || seq < 1 || block_kv < 1 ||
       !decode_plan(heads, kv_heads, head_dim, &vec, &tile))
     return (int)cudaErrorInvalidValue;
-  const DecodeLaunch launch{q, k, v, kv_len_ptr, kv_len_value, part_m,
-                            part_l, part_acc, out, batch, seq, kv_heads,
-                            head_dim, heads / kv_heads, block_kv, num_warps,
-                            static_cast<cudaStream_t>(stream)};
-  return (int)dispatch_decode(dtype, vec, tile, launch, cudaErrorInvalidValue);
+  const DecodeLaunch launch{q,        k,         v,        kv_len_ptr,
+                            kv_len_value, part_m, part_l, part_acc,
+                            counters, out,       batch,    seq,
+                            kv_heads, head_dim,  heads / kv_heads,
+                            block_kv, static_cast<cudaStream_t>(stream)};
+  return (int)dispatch(dtype, head_dim, tile, launch, cudaErrorInvalidValue);
 }
 
-// The shared memory (bytes, all of it static) of one split-kernel block
-// for this head layout and dtype, as compiled; -1 for a layout the kernel
-// does not take.  The tuning space's smem_footprint must give the same
-// number (chip_smoke.py checks it).
+// The dynamic shared memory (bytes) one block asks for at this head
+// layout and dtype; the kernel has no static shared memory.  -1 for a
+// layout the kernel does not take.  The tuning space's smem_footprint
+// must give the same number (chip_smoke.py checks it).
 extern "C" int repro_flash_decode_smem_bytes(int heads, int kv_heads,
                                              int head_dim, int dtype) {
   int vec, tile;
   if (!decode_plan(heads, kv_heads, head_dim, &vec, &tile)) return -1;
-  return dispatch_decode(dtype, vec, tile, DecodeSmem{}, -1);
+  return dispatch(dtype, head_dim, tile, DecodeSmem{}, -1);
 }

@@ -5,37 +5,94 @@ Counterpart of ``repro.kernels.decode_attention``: one query token per
 sequence against a (B, S, KV, D) cache of which the first ``kv_len``
 entries (one scalar for the batch) are valid.  The CUDA kernel
 (``csrc/decode_attention.cu``, which documents its design and bound)
-splits the cache axis into blocks of ``block_kv`` entries and merges the
-splits in a second pass.  ``kv_len`` may be a Python int or a 0-d int32
-device tensor; the kernel reads the tensor on the device, so the host
-never waits for it.
+splits the cache axis into blocks of ``block_kv`` entries, streams each
+split's K/V through a TMA ring in shared memory, and merges the splits in
+the same launch: the last block of a (row, KV head) to finish merges the
+partial states in split order.  ``kv_len`` may be a Python int or a 0-d
+int32 device tensor; the kernel reads the tensor on the device, so the
+host never waits for it.
 
 ``flash_decode_cuda`` launches the kernel for CUDA tensors and runs
-``decode_attention_ref`` for CPU tensors; it counts its launches (one per
-call, the split and the merge kernel together) in
-``flash_decode_cuda.launches``.
+``decode_attention_ref`` for CPU tensors; it counts its launches in
+``flash_decode_cuda.launches``.  ``kernels.ref.decode_split_ref`` follows
+the kernel's algorithm (split partials merged in split order) on the CPU.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import Optional, Union
+from typing import Dict, Tuple, Union
 
 import torch
 
 from repro_torch.kernels import build
-# the split kernel's shared memory has the paged decode kernel's layout
-# (per-warp and merged softmax state, csrc/common.cuh's head tiles); the
-# library reports the compiled figure (repro_flash_decode_smem_bytes)
-from repro_torch.kernels.paged_attention import smem_bytes
 
 __all__ = ["flash_decode_cuda", "decode_attention_ref", "smem_bytes",
-           "HEAD_DIMS", "NUM_WARPS"]
+           "tile_tokens", "head_tile", "auto_block_kv", "HEAD_DIMS",
+           "STAGES", "THREADS", "BLOCKS_PER_SM"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
-NUM_WARPS = (1, 2, 4, 8, 16, 32)
+THREADS = 256        # the block: fixed by the design, no num_warps knob
+STAGES = 4           # K/V tiles in flight a block
+TILE_BYTES = 8192    # the most bytes of one K (or V) tile
+MAX_HEAD_TILE = 8    # query heads a block scores from one K/V tile
+# block_kv 0 cuts the cache into as many splits as keep the grid at this
+# many blocks an SM or fewer: at Gemma-7B's widths the fastest split count
+# at both B=8, S=2048 and B=1, S=4096 (scripts/kernel_phases.py
+# --decode-splits; PERF.md)
+BLOCKS_PER_SM = 2
+_ALIGN = 128         # of a TMA box's shared-memory destination
+
+# the merge counters of each (device, stream): zero between launches
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def tile_tokens(D: int, esize: int) -> int:
+    """Cache entries of one K (or V) tile: 8 KB of rows, at most 128."""
+    return min(128, TILE_BYTES // (D * esize))
+
+
+def head_tile(H: int, KV: int) -> int:
+    """Query heads a block takes: the power of two >= H / KV, at most 8."""
+    t = 1
+    while t < H // KV and t < MAX_HEAD_TILE:
+        t <<= 1
+    return t
+
+
+def auto_block_kv(B: int, S: int, H: int, KV: int, D: int, esize: int,
+                  sms: int) -> int:
+    """The entries a split owns when ``block_kv`` is 0: S cut into the most
+    splits that keep the grid (B * KV * head tiles * splits blocks) at
+    ``BLOCKS_PER_SM`` blocks an SM of ``sms`` or fewer, at least one,
+    rounded up to whole tiles."""
+    units = B * KV * -(-(H // KV) // head_tile(H, KV))
+    n_split = max(1, BLOCKS_PER_SM * sms // units)
+    per_split = -(-S // n_split)
+    tk = tile_tokens(D, esize)
+    return min(S, -(-per_split // tk) * tk)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def smem_bytes(H: int, KV: int, D: int, dtype: str) -> int:
+    """Dynamic shared memory of one block (the kernel has no static shared
+    memory): alignment slack, the ring of ``STAGES`` K and V tiles (at
+    least two floats a thread and head: the token groups' sums meet there
+    at the end), the scaled f32 query and the tile's scores of the head
+    tile, four softmax floats a head, the stages' barriers and the
+    last-block flag.  ``csrc/decode_attention.cu::smem_bytes`` is the same
+    formula; ``chip_smoke.py`` holds the two equal."""
+    esize = 2 if dtype == "bfloat16" else 4
+    tk, gq = tile_tokens(D, esize), head_tile(H, KV)
+    ring = max(STAGES * 2 * tk * D * esize, 2 * THREADS * gq * 4)
+    return (_ALIGN + ring + gq * D * 4 + gq * tk * 4 + 16 * gq + STAGES * 8
+            + 8)
 
 
 @functools.lru_cache(maxsize=None)
@@ -43,7 +100,7 @@ def _lib():
     lib = build.load("decode_attention")
     fn = lib.repro_flash_decode
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.repro_flash_decode_smem_bytes.argtypes = [ctypes.c_int] * 4
@@ -51,7 +108,21 @@ def _lib():
     return lib
 
 
-def _check(q, k, v, kv_len, block_kv, num_warps) -> None:
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` int32 merge counters for launches on ``stream``,
+    zeroed once when made; the kernel leaves every counter at zero, so a
+    replayed CUDA graph finds them so too.  One set a stream: launches on
+    two streams at once never share a counter."""
+    key = (device.index, stream)
+    c = _COUNTERS.get(key)
+    if c is None or c.numel() < n:
+        c = _COUNTERS[key] = torch.zeros(
+            max(n, 2 * (0 if c is None else c.numel())), dtype=torch.int32,
+            device=device)
+    return c
+
+
+def _check(q, k, v, kv_len, block_kv) -> None:
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -80,8 +151,6 @@ def _check(q, k, v, kv_len, block_kv, num_warps) -> None:
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
     if block_kv < 1:
         raise ValueError(f"block_kv={block_kv} must be >= 1")
-    if num_warps is not None and num_warps not in NUM_WARPS:
-        raise ValueError(f"num_warps={num_warps} not in {NUM_WARPS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -95,27 +164,27 @@ def flash_decode_cuda(
     v: torch.Tensor,                     # (B, S, KV, D)
     kv_len: Union[int, torch.Tensor],    # valid cache entries, all rows
     *,
-    block_kv: int = 256,
-    num_warps: Optional[int] = None,
+    block_kv: int = 0,
 ) -> torch.Tensor:
     """Decode attention over the first ``kv_len`` cache entries,
     (B, H, D) in q's dtype; zeros where ``kv_len`` is 0.
 
-    ``block_kv`` is the cache entries a block owns (clamped to S);
-    ``num_warps`` sets the split kernel's block size, None (or 0) lets the
-    launcher take the most warps its registers allow, at least 8 entries
-    a warp.  CUDA tensors launch the kernel (or raise); CPU tensors run
+    ``block_kv`` is the cache entries a block owns (clamped to S); 0 lets
+    the launcher cut the cache to fill the card (``auto_block_kv``).  CUDA
+    tensors launch the kernel (or raise); CPU tensors run
     ``decode_attention_ref``.  Nothing falls back from one to the other.
     """
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    num_warps = num_warps or None
     B, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
+    if block_kv == 0 and KV > 0 and H % KV == 0:  # else _check raises
+        block_kv = auto_block_kv(B, S, H, KV, D, q.element_size(),
+                                 _sm_count(q.device.index or 0))
     block_kv = min(block_kv, S)
-    _check(q, k, v, kv_len, block_kv, num_warps)
+    _check(q, k, v, kv_len, block_kv)
     n_split = -(-S // block_kv)
     out = torch.empty_like(q)
     part_ml = torch.empty((2, B, H, n_split), dtype=torch.float32,
@@ -128,17 +197,18 @@ def flash_decode_cuda(
         len_ptr, len_value = None, int(kv_len)
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    counters = _counters(q.device, stream,
+                         B * KV * -(-(H // KV) // head_tile(H, KV)))
     err = lib.repro_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), len_ptr, len_value,
         part_ml[0].data_ptr(), part_ml[1].data_ptr(), part_acc.data_ptr(),
-        out.data_ptr(), B, S, H, KV, D, build.DTYPE_CODE[q.dtype], block_kv,
-        num_warps or 0, stream)
+        counters.data_ptr(), out.data_ptr(), B, S, H, KV, D,
+        build.DTYPE_CODE[q.dtype], block_kv, stream)
     if err:
         raise RuntimeError(
             f"flash decode kernel launch failed: "
             f"{lib.repro_cuda_error_string(err).decode()} (B={B} S={S} "
-            f"H={H} KV={KV} D={D} block_kv={block_kv} "
-            f"num_warps={num_warps or 'auto'})")
+            f"H={H} KV={KV} D={D} block_kv={block_kv})")
     flash_decode_cuda.launches += 1
     return out
 

@@ -35,16 +35,18 @@ __all__ = ["flash_attention", "flash_decode", "paged_flash_decode",
 # tile's rows or entries); the tile sizes are each kernel space's default.
 # Flash attention's default is the fastest tile pair of the card's bf16
 # grid at Gemma-7B's train_4k among those that fit a block in both dtypes
-# at D=256 (PERF.md); it has no num_warps knob.
+# at D=256 (PERF.md).  Flash attention, dense decode and GLA have no
+# num_warps knob: their designs fix the block.  Dense decode's block_kv 0
+# leaves the split to its launcher, which cuts the cache to fill the card.
 # pages_per_block is the pool's group size: the serve engine resolves it
 # when it lays the pool out (the allocator group IS the kernel's page
 # tile); only num_warps resolves here.
 DEFAULT_BLOCKS: Dict[str, Dict[str, Any]] = {
     "flash_attention": {"block_q": 64, "block_kv": 32},
-    "decode_attention": {"block_kv": 256, "num_warps": 0},
+    "decode_attention": {"block_kv": 0},
     "paged_attention": {"pages_per_block": 4, "num_warps": 0},
     "rmsnorm": {"block_rows": 4, "num_warps": 0},
-    "gla": {"chunk": 128, "num_warps": 0},
+    "gla": {"chunk": 128},
 }
 
 _memo: Dict[Tuple, Dict[str, Any]] = {}
@@ -122,21 +124,18 @@ def rmsnorm(x, scale, *, eps: float = 1e-6,
                         num_warps=blocks["num_warps"])
 
 
-def gla(q, k, v, log_g, *, chunk: Optional[int] = None,
-        num_warps: Optional[int] = None):
+def gla(q, k, v, log_g, *, chunk: Optional[int] = None):
     """Chunked gated linear attention from a zero state: q and k
     (B, S, H, dk), v (B, S, H, dv), log_g (B, S, H) -> (y (B, S, H, dv) in
     v's dtype, final state (B, H, dk, dv) f32)."""
     B, S, H, dk = q.shape
     blocks = _resolve("gla", {"B": B, "S": S, "H": H, "DK": dk,
                               "DV": v.shape[-1]}, q.dtype, q.device,
-                      {"chunk": chunk, "num_warps": num_warps})
-    return gla_cuda(q, k, v, log_g, chunk=blocks["chunk"],
-                    num_warps=blocks["num_warps"])
+                      {"chunk": chunk})
+    return gla_cuda(q, k, v, log_g, chunk=blocks["chunk"])
 
 
-def flash_decode(q, k, v, kv_len, *, block_kv: Optional[int] = None,
-                 num_warps: Optional[int] = None):
+def flash_decode(q, k, v, kv_len, *, block_kv: Optional[int] = None):
     """Decode attention over a dense cache: q (B, H, D), k and v
     (B, S, KV, D), ``kv_len`` valid entries (an int or a 0-d int32 tensor
     on q's device) -> (B, H, D) in q's dtype."""
@@ -144,9 +143,8 @@ def flash_decode(q, k, v, kv_len, *, block_kv: Optional[int] = None,
     blocks = _resolve(
         "decode_attention",
         {"B": B, "S": k.shape[1], "H": H, "KV": k.shape[2], "D": D},
-        q.dtype, q.device, {"block_kv": block_kv, "num_warps": num_warps})
-    return flash_decode_cuda(q, k, v, kv_len, block_kv=blocks["block_kv"],
-                             num_warps=blocks["num_warps"])
+        q.dtype, q.device, {"block_kv": block_kv})
+    return flash_decode_cuda(q, k, v, kv_len, block_kv=blocks["block_kv"])
 
 
 def paged_flash_decode(q, k_pages, v_pages, page_table, lengths, *,

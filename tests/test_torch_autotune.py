@@ -107,8 +107,8 @@ def test_space_defaults_are_the_ops_defaults(kernel):
 
 def test_gla_space_matches_the_reference():
     """The gla space: the reference's chunk choices and default, its
-    dims; num_warps (0 = the launcher's choice) in place of the TPU's
-    dim_semantics."""
+    dims; no num_warps (the kernel's blocks are 128 threads by design)
+    and no counterpart of the TPU's dim_semantics."""
     from repro.autotune.space import KERNELS as JKERNELS
     from repro.autotune.space import KernelSpace as JKernelSpace
 
@@ -116,10 +116,9 @@ def test_gla_space_matches_the_reference():
     assert space["chunk"].choices == jspace["chunk"].choices
     assert space.default_config()["chunk"] == \
         jspace.default_config()["chunk"] == 128
-    assert space.default_config()["num_warps"] == 0
-    assert set(space.names) == {"chunk", "num_warps"}
+    assert set(space.names) == {"chunk"}
     assert KERNELS["gla"].dims == JKERNELS["gla"].dims
-    assert ops.DEFAULT_BLOCKS["gla"] == {"chunk": 128, "num_warps": 0}
+    assert ops.DEFAULT_BLOCKS["gla"] == {"chunk": 128}
 
 
 @pytest.mark.parametrize("dims", [
@@ -139,9 +138,10 @@ def test_gla_feasible_iff_the_state_fits(dims):
 
 def test_ops_gla_resolves_the_cache_but_the_model_passes_its_chunk(
         tmp_cache, monkeypatch):
-    """``ops.gla`` resolves chunk explicit > tuned > default; Mamba2
-    passes ``cfg.ssm_chunk`` explicitly (as the reference does), so a
-    tuned chunk never reaches the model."""
+    """``ops.gla`` resolves chunk explicit > tuned > default (an entry
+    tuned while the space had a num_warps knob resolves its chunk);
+    Mamba2 passes ``cfg.ssm_chunk`` explicitly (as the reference does),
+    so a tuned chunk never reaches the model."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import ssm
 
@@ -150,8 +150,7 @@ def test_ops_gla_resolves_the_cache_but_the_model_passes_its_chunk(
                                  "model-sm90", {"chunk": 16, "num_warps": 4},
                                  1.0)
     assert ops._resolve("gla", dims, torch.float32, "cpu",
-                        {"chunk": None, "num_warps": None}) == {
-        "chunk": 16, "num_warps": 4}
+                        {"chunk": None}) == {"chunk": 16}
     seen = []
     monkeypatch.setattr(ops, "gla_cuda",
                         lambda *a, **kw: seen.append(kw["chunk"]))

@@ -211,6 +211,60 @@ def test_flash_decode_matches_plain_version(card, dtype, B, S, H, KV, D,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bkv,S", [
+    (4096, 1000),   # one split: the block writes the output itself
+    (64, 1000),     # 16 splits merged by the last block to finish
+    (32, 4096),     # 128 splits
+], ids=["one-split", "16-splits", "128-splits"])
+def test_flash_decode_one_and_many_splits(card, dtype, bkv, S):
+    """The fused merge against the plain version at one split and many,
+    with a kv_len inside the first split and the whole cache."""
+    q = _randn((2, 16, 128), dtype, 1)
+    k = _randn((2, S, 8, 128), dtype, 2)
+    v = _randn((2, S, 8, 128), dtype, 3)
+    for kv_len in (min(bkv, S) // 2 + 1, S):
+        got = ops.flash_decode(q, k, v, kv_len, block_kv=bkv)
+        torch.testing.assert_close(
+            got.float(), fd.decode_attention_ref(q, k, v, kv_len).float(),
+            rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_decode_is_bitwise_repeatable_and_graph_safe(card):
+    """Two calls give the same bits; so do two replays of a captured CUDA
+    graph of the call, whose merge counters the kernel must have reset
+    (a counter left at a count would make a replay merge too early, or
+    never)."""
+    q = _randn((8, 16, 256), torch.bfloat16, 1)
+    k = _randn((8, 2048, 16, 256), torch.bfloat16, 2)
+    v = _randn((8, 2048, 16, 256), torch.bfloat16, 3)
+    kl = torch.tensor(1500, dtype=torch.int32, device="cuda")
+    first = ops.flash_decode(q, k, v, kl, block_kv=128)
+    assert torch.equal(first, ops.flash_decode(q, k, v, kl, block_kv=128))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # the counters of the capture stream
+        ops.flash_decode(q, k, v, kl, block_kv=128)
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = ops.flash_decode(q, k, v, kl, block_kv=128)
+    outs = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        outs.append(out.clone())
+    assert torch.equal(outs[0], first) and torch.equal(outs[1], first)
+    # the graph reads kv_len on the device: a new length, a new result
+    kl.fill_(700)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, ops.flash_decode(q, k, v, kl, block_kv=128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,block_rows,num_warps", [
     ((4, 32), 4, None), ((3, 7, 64), 16, 4), ((1, 128), 256, None),
     ((5, 100), 32, 2), ((4096, 3072), 4, None)])
@@ -331,11 +385,43 @@ def test_gla_matches_plain_version(card, dtype, B, S, H, dk, dv, chunk,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("num_warps", [None, 1, 2, 8, 16])
-def test_gla_num_warps(card, num_warps):
+@pytest.mark.parametrize("chunk", [8, 16, 64, 100, 1024])
+def test_gla_chunk_lengths(card, chunk):
+    """Chunks shorter than a 64-step tile, not a multiple of it, and longer
+    than S (clamped): the sequence split at each."""
     q, k, v, lg = _gla_inputs(1, 200, 3, 32, 64, torch.float32)
-    y, _ = ops.gla(q, k, v, lg, chunk=64, num_warps=num_warps)
-    _gla_close(y, chunked_gla(q, k, v, lg, chunk=64)[0], 2e-5)
+    y, st = ops.gla(q, k, v, lg, chunk=chunk)
+    yr, sr = chunked_gla(q, k, v, lg, chunk=chunk)
+    _gla_close(y, yr, 2e-5)
+    _gla_close(st, sr, 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gla_two_rows_and_broadcast_against_copies(card, dtype):
+    """B=2 with q and k broadcast over the heads (two heads an output
+    block) against the same values materialized (a head a block), within
+    tolerance, and against the plain version."""
+    q, k, v, lg = _gla_inputs(2, 700, 8, 64, 64, dtype, shared_qk=True)
+    assert gl.head_group(q, k) == 2
+    qc, kc = q.contiguous(), k.contiguous()
+    assert gl.head_group(qc, kc) == 1
+    y, st = ops.gla(q, k, v, lg, chunk=256)
+    yc, stc = ops.gla(qc, kc, v, lg, chunk=256)
+    yr, sr = chunked_gla(q, k, v, lg, chunk=256)
+    _gla_close(y, yc, TOL[dtype])
+    _gla_close(st, stc, TOL[torch.float32])
+    _gla_close(y, yr, TOL[dtype])
+    _gla_close(st, sr, TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_gla_is_bitwise_repeatable(card):
+    q, k, v, lg = _gla_inputs(1, 4096, 64, 64, 64, torch.float32,
+                              shared_qk=True)
+    y0, s0 = ops.gla(q, k, v, lg, chunk=256)
+    y1, s1 = ops.gla(q, k, v, lg, chunk=256)
+    assert torch.equal(y0, y1) and torch.equal(s0, s1)
 
 
 @pytest.mark.cuda

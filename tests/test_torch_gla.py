@@ -9,6 +9,13 @@ Same numpy inputs (made from a seed) into ``repro``'s and
   against ``gla_pallas`` in interpret mode, at the shapes of
   ``tests/test_kernels.py::TestGLA`` (ragged S=70 included), in f32 and
   bf16, with q and k broadcast over the heads as Mamba2 passes them;
+* ``kernels.ref.gla_chunk_parallel_ref`` (the CUDA kernel's algorithm:
+  chunk states, a scan over chunks, outputs) against ``gla_pallas`` in
+  interpret mode and ``chunked_gla``: one chunk, S < chunk, a ragged last
+  chunk, q and k broadcast over the heads; with its operands rounded as
+  the kernel's 3xTF32 tensor-core products round them, at the f32 GLA
+  shapes ``chip_smoke.py`` phase 3 holds the kernel to, within the
+  kernel's f32 bar there (2e-5 of max |ref| plus 2e-5 of |ref|);
 * the chunk-invariance property of ``tests/test_kernels.py``.
 
 Tolerances: the chunked core and the step against the reference's, f32,
@@ -33,7 +40,8 @@ from repro.models.gla import chunked_gla as jax_chunked_gla
 from repro.models.gla import gla_step as jax_gla_step
 from repro_torch.kernels import gla as gl
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import cumsum_f32, gla_ref
+from repro_torch.kernels.ref import (cumsum_f32, gla_chunk_parallel_ref,
+                                     gla_ref)
 from repro_torch.models.gla import chunked_gla, gla_step
 
 torch.set_num_threads(1)
@@ -142,6 +150,68 @@ def test_broadcast_qk_at_the_models_chunk(dtype):
     _close(s, sj, stol)
 
 
+@pytest.mark.parametrize("tf32", [None, "3x"])
+@pytest.mark.parametrize("B,S,H,dk,dv,chunk,shared_qk", [
+    (2, 32, 3, 8, 16, 32, False),   # one chunk
+    (1, 20, 2, 16, 8, 64, False),   # S < chunk
+    (2, 70, 2, 16, 8, 32, False),   # a ragged last chunk
+    (2, 70, 4, 16, 8, 32, True),    # Mamba2's broadcast q and k
+], ids=["one-chunk", "short", "ragged", "broadcast"])
+def test_chunk_parallel_ref_matches_gla_pallas(B, S, H, dk, dv, chunk,
+                                               shared_qk, tf32):
+    """The CUDA kernel's algorithm, exact or with 3xTF32 operands, against
+    ``gla_pallas`` in interpret mode and against ``chunked_gla``."""
+    arrs = _inputs(11, B, S, H, dk, dv, shared_qk=shared_qk)
+    yj, sj = gla_pallas(*_jax(arrs), chunk=chunk, interpret=True)
+    tq, tk, tv, tg = _torch(arrs, shared_qk=shared_qk)
+    y, s = gla_chunk_parallel_ref(tq, tk, tv, tg, chunk=chunk, tf32=tf32)
+    ytol, stol = KERNEL_TOL["float32"]
+    _close(y, yj, ytol)
+    _close(s, sj, stol)
+    yc, sc = chunked_gla(tq, tk, tv, tg, chunk=chunk)
+    _close(y, yc.numpy(), F32)
+    _close(s, sc.numpy(), F32)
+
+
+def _scaled_err(got, want, tol):
+    """The largest error as a share of ``chip_smoke.py``'s GLA bar,
+    tol * max |ref| + tol * |ref| (1.0 sits on the bar)."""
+    w = want.float()
+    return float(((got.float() - w).abs()
+                  / (tol * w.abs().max() + tol * w.abs())).max())
+
+
+@pytest.mark.parametrize("B,S,H,dk,dv,chunk,shared_qk", [
+    (1, 16, 1, 4, 4, 8, False),
+    (2, 64, 3, 8, 16, 16, False),
+    (1, 70, 2, 16, 8, 32, False),
+    (2, 128, 4, 32, 32, 64, False),
+    (2, 1000, 4, 64, 32, 256, True),
+    (1, 300, 2, 128, 128, 256, False),
+    (1, 100, 2, 96, 40, 64, False),
+    (1, 4096, 64, 64, 64, 256, True),  # Zamba2-1.2B's Mamba2 layer
+], ids=["tiny", "small", "ragged", "d32", "broadcast-1000", "d128",
+        "d96x40", "zamba2"])
+def test_3xtf32_emulation_meets_the_f32_bar(B, S, H, dk, dv, chunk,
+                                            shared_qk):
+    """Operands rounded as the kernel's 3xTF32 products round them keep y
+    and the final state within the f32 bar ``chip_smoke.py`` phase 3
+    holds the kernel to against ``chunked_gla`` (2e-5 of max |ref| plus
+    2e-5 of |ref|), at the phase's f32 shapes.  Single-pass TF32 goes
+    over the bar at every one of them: the control that shows the bar
+    tells the two apart.  ``pytest -s`` prints both shares of the bar."""
+    arrs = _inputs(12, B, S, H, dk, dv, shared_qk=shared_qk)
+    args = _torch(arrs, shared_qk=shared_qk)
+    yc, sc = chunked_gla(*args, chunk=chunk)
+    share = {}
+    for mode in ("1x", "3x"):
+        y, s = gla_chunk_parallel_ref(*args, chunk=chunk, tf32=mode)
+        share[mode] = (_scaled_err(y, yc, 2e-5), _scaled_err(s, sc, 2e-5))
+    print(f"share of the f32 bar (y, state): {share}")
+    assert max(share["3x"]) <= 1.0
+    assert max(share["1x"]) > 1.0
+
+
 def test_gla_step_matches_reference_and_the_chunked_core():
     rng = np.random.default_rng(6)
     B, H, dk, dv = 2, 3, 8, 16
@@ -200,12 +270,15 @@ def test_plain_version_is_differentiable():
 
 def test_smem_footprint_formula():
     """The shared memory the kernel's library reports is this formula
-    (``chip_smoke.py`` holds the two equal on the card); at the model's
-    chunk and Zamba2's dk = dv = 64 a block fits the H100's opt-in limit,
-    and so does the largest head the kernel takes."""
-    assert gl.smem_bytes(64, 64, 256) == 4 * (64 * 64 + 256 + 64 * 64
-                                              + 64 * 65 + 64 * 64
-                                              + 64 * 64 + 64 * 64)
-    assert gl.smem_bytes(gl.MAX_DIM, gl.MAX_DIM, 256) <= 232_448
-    assert gl.smem_bytes(8, 8, 16) == 4 * (64 + 16 + 128 + 144 + 128
-                                           + 256 + 128)
+    (``chip_smoke.py`` holds the two equal on the card): the output
+    kernel's block at a head group of two, two cumsums of the chunk
+    rounded up to 64-step tiles, q and k tiles of 64 rows padded to 4
+    mod 32 floats and two v tiles (or one S_c, rows padded to 8 mod 32);
+    at the model's chunk and Zamba2's dk = dv = 64 three blocks fit an SM,
+    and the largest head the kernel takes fits the H100's opt-in limit."""
+    assert gl.smem_bytes(64, 64, 256) == 4 * (2 * 256 + 2 * 64 * 68
+                                              + 2 * 64 * 68)
+    assert 3 * gl.smem_bytes(64, 64, 256) <= 233_472
+    assert gl.smem_bytes(gl.MAX_DIM, gl.MAX_DIM, gl.MAX_CHUNK) <= 232_448
+    assert gl.smem_bytes(8, 8, 16) == 4 * (2 * 64 + 2 * 64 * 36
+                                           + 2 * 64 * 68)

@@ -7,8 +7,10 @@ run in interpret mode, on the same numpy inputs and the shapes of
 ``paged_flash_decode_pallas``, ``flash_attention`` against
 ``flash_attention_pallas``, ``flash_decode`` against
 ``flash_decode_pallas`` and ``rmsnorm`` against ``rmsnorm_pallas``.
-Tolerances are the reference's own kernel tolerances
-(``tests/test_kernels.py::TOL``): f32 2e-5, bf16 2e-2.
+``kernels.ref.decode_split_ref``, which follows the CUDA decode kernel's
+split-and-merge algorithm, is held to ``flash_decode_pallas`` and to
+``decode_attention_ref`` too.  Tolerances are the reference's own kernel
+tolerances (``tests/test_kernels.py::TOL``): f32 2e-5, bf16 2e-2.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +29,8 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels.paged_attention import _check, paged_attention_ref
-from repro_torch.kernels.ref import attention_ref, rmsnorm_ref
+from repro_torch.kernels.ref import (attention_ref, decode_split_ref,
+                                     rmsnorm_ref)
 
 torch.set_num_threads(1)
 
@@ -285,6 +288,35 @@ def test_flash_decode_matches_pallas_interpret(dtype, B, S, H, KV, D, bkv):
                want, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KV,D,bkv", [
+    (1, 32, 2, 2, 8, 16),     # two splits
+    (2, 96, 8, 2, 16, 32),    # GQA, three splits
+    (1, 100, 4, 1, 32, 32),   # MQA, a ragged last split
+    (2, 40, 4, 2, 16, 64),    # one split (block_kv past S)
+])
+def test_decode_split_ref_matches_pallas_interpret(dtype, B, S, H, KV, D,
+                                                  bkv):
+    """The CUDA decode kernel's algorithm (split partials merged in split
+    order) against ``flash_decode_pallas`` and ``decode_attention_ref``:
+    kv_len 0 (zeros, as the Pallas kernel gives), inside the first split,
+    and the whole cache."""
+    rng = np.random.default_rng(hash((B, S, H, KV, D, 1)) % 2**31)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _pair(_rand(rng, shape, dtype), dtype)
+        for shape in ((B, H, D), (B, S, KV, D), (B, S, KV, D)))
+    for kv_len in (0, min(bkv, S) // 2 + 1, S):
+        want = flash_decode_pallas(jq, jk, jv, kv_len, block_kv=bkv,
+                                   interpret=True)
+        got = decode_split_ref(tq, tk, tv, kv_len, block_kv=bkv)
+        _close(got, want, dtype)
+        if kv_len == 0:
+            assert bool((got == 0).all())
+        else:
+            plain = fd.decode_attention_ref(tq, tk, tv, kv_len)
+            _close(got, np.asarray(plain.float()), dtype)
+
+
 # tests/test_kernels.py TestRMSNorm
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape,block", [
@@ -321,14 +353,35 @@ def test_smem_footprints():
     """The figures the C launchers report, by formula: the bf16 flash
     kernel's aligned Q tile, two K/V stages and barriers, the f32 flash
     kernel's f32 query tile, accumulator and row state plus padded K/V
-    tiles; the decode kernels' per-warp and merged softmax state."""
+    tiles; the paged decode kernel's per-warp and merged softmax state;
+    the dense decode kernel's ring of four K/V tiles (8 KB of K at most,
+    128 entries at most), its f32 query and scores, four softmax floats a
+    head, four barriers and a flag."""
     assert fa.smem_bytes(256, "bfloat16", 64, 32) == (
         1024 + 64 * 256 * 2 + 4 * 32 * 256 * 2 + 64)
     assert fa.smem_bytes(8, "float32", 16, 16) == (
         (2 * 16 * 8 + 2 * 16) * 4 + 2 * 16 * 9 * 4)
-    assert fd.smem_bytes(16, 16, 256) == (64 + 256 + 2) * 4
-    assert fd.smem_bytes(24, 2, 64) == (64 * 8 + 8 * 64 + 2 * 8) * 4
+    assert fd.smem_bytes(16, 16, 256, "bfloat16") == (
+        128 + 4 * 2 * 16 * 512 + 256 * 4 + 16 * 4 + 16 + 32 + 8)
+    assert fd.smem_bytes(24, 2, 64, "float32") == (
+        128 + 4 * 2 * 32 * 256 + 8 * 64 * 4 + 8 * 32 * 4 + 8 * 16 + 32 + 8)
     assert rn.smem_bytes() == 0
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,esize,want", [
+    (8, 2048, 16, 16, 256, 2, 1024),   # Gemma-7B's engine: 2 splits
+    (1, 4096, 16, 16, 256, 2, 256),    # the tune shape: 16 splits
+    (1, 4096, 16, 16, 256, 4, 256),    # f32: 8-entry tiles
+    (2, 100, 24, 2, 64, 2, 64),        # two head tiles; a 64-entry tile
+    (64, 512, 32, 32, 128, 2, 512),    # more blocks than the card: one
+], ids=["gemma-engine", "tune", "f32", "gqa", "one-split"])
+def test_decode_auto_split_fills_the_card(B, S, H, KV, D, esize, want):
+    """block_kv 0: the most splits that keep the grid at two blocks an
+    SM of the H100's 132 or fewer, rounded up to whole tiles."""
+    got = fd.auto_block_kv(B, S, H, KV, D, esize, 132)
+    assert got == want
+    units = B * KV * -(-(H // KV) // fd.head_tile(H, KV))
+    assert units * -(-S // got) <= max(units, fd.BLOCKS_PER_SM * 132)
 
 
 @pytest.mark.parametrize("D,block_q,block_kv,bf16_bytes", [
@@ -364,10 +417,10 @@ def test_flash_smem_bytes_bf16_design_and_f32(D, block_q, block_kv,
      "share one dtype"),
     (lambda: fd._check(torch.zeros(2, 4, 16), torch.zeros(2, 8, 2, 16),
                        torch.zeros(2, 8, 2, 16),
-                       torch.tensor(3, dtype=torch.int64), 4, None),
+                       torch.tensor(3, dtype=torch.int64), 4),
      "int32"),
     (lambda: fd._check(torch.zeros(2, 4, 16), torch.zeros(2, 8, 2, 16),
-                       torch.zeros(2, 8, 2, 16), 3, 4, 3), "num_warps"),
+                       torch.zeros(2, 8, 2, 16), 3, 0), "block_kv"),
     (lambda: rn._check(torch.zeros(4, 8), torch.zeros(4), 4, None),
      "must be"),
     (lambda: rn._check(torch.zeros(4, 8), torch.zeros(8).bfloat16(), 4,
@@ -380,7 +433,7 @@ def test_flash_smem_bytes_bf16_design_and_f32(D, block_q, block_kv,
     (lambda: fa._check(*[torch.zeros(1, 256, 2, 256, dtype=torch.bfloat16)]
                        * 3, 64, 128), "shared memory"),
 ], ids=["fa-head-dim", "fa-gqa", "fa-block-kv", "fa-dtype", "fd-kv-len",
-        "fd-warps", "rn-scale-shape", "rn-scale-dtype", "fa-bf16-align",
+        "fd-block-kv", "rn-scale-shape", "rn-scale-dtype", "fa-bf16-align",
         "fa-bf16-block-q", "fa-bf16-smem"])
 def test_new_wrappers_reject_what_the_kernels_do_not_take(call, match):
     """The CUDA launch paths validate their inputs before any launch."""
