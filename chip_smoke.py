@@ -23,7 +23,11 @@ Phases (each failure exits non-zero):
               version and one PyTorch library call where there is one, by
               two clocks: host-paced (``time_ms``) and device-only
               (``device_ms``: a CUDA graph of many calls on L2-cold
-              inputs).
+              inputs).  Paged decode also at every split_tokens of a sweep
+              at its record shape, and through a CUDA graph replayed with
+              its lengths changed in place between replays; timed at the
+              record's lengths (1 to 2048) and at phase 5's
+              mid-generation lengths.
 4. parity   - a tiny f32 model served on the card and on the CPU from the
               same weights: the greedy tokens must be equal.
 5. serve    - Gemma-7B at full width in bf16 (random weights from a seed,
@@ -109,6 +113,12 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # that, and a wrong tile, ring stage or rescale gives 1e-1 or more.
 # f32: both paths sum in f32 (about 1e-6)
 FLASH_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# paged decode, beside TOL, on the rows of PAGED_LONG tokens or more: such
+# a row's outputs average hundreds of values (|out| about 0.03 to 0.1 at
+# 300 to 2048 tokens), so TOL hides a fault in one of its later splits or
+# ring stages.  The bar is FLASH_REL_TOL's, on ||got - ref|| / ||ref|| over
+# those rows, for the same reasons (bf16: output rounding, a few 1e-3)
+PAGED_LONG = 300
 # phase 8, bf16 at full width, kernels against plain versions: the two
 # paths differ in f32 summation order (GLA, attention) and so in a few
 # bf16 roundings of each layer's output, compounding over 38 layers (a
@@ -347,6 +357,21 @@ def rel_err(got, want) -> float:
     return float((got.float() - w).norm() / w.norm())
 
 
+def paged_close(got, want, ln, what):
+    """``close`` for paged decode, and over the rows of ``PAGED_LONG``
+    tokens or more the norm-relative bar ``FLASH_REL_TOL``; returns the
+    max abs error and that norm-relative error (None without such rows)."""
+    err = close(got, want, what)
+    long_rows = ln >= PAGED_LONG
+    if not bool(long_rows.any()):
+        return err, None
+    rel = rel_err(got[long_rows], want[long_rows])
+    bar = FLASH_REL_TOL[want.dtype]
+    check(rel <= bar, f"{what}: norm-relative error {rel:.3e} of the rows "
+                      f"of {PAGED_LONG} tokens or more above {bar}")
+    return err, rel
+
+
 def record(name, err, ms, plain_ms, bound, library_ms, dev_ms,
            library_dev_ms):
     """A kernel's line: ``ms``, ``plain_ms`` and ``library_ms`` by the
@@ -392,13 +417,116 @@ def paged_case(B, H, KV, D, T, maxg, dtype, lengths=None, seed=0):
     return q, kp, vp, pt, ln
 
 
+# the Gemma-7B decode shape of the main path: B=8 slots, 16 heads of 256,
+# 16-token groups, 128 groups (max_seq 2048) per slot; the record's ragged
+# lengths, and phase 5's mid-generation lengths (its prompts, drawn from
+# SEED as phase_serve draws them, plus half of max_new: the lengths of
+# profile_decode_step)
+PAGED_GEMMA = dict(B=8, H=16, KV=16, D=256, T=16, maxg=128)
+PAGED_RECORD_LENGTHS = [1, 16, 17, 2048, 300, 777, 1500, 64]
+PAGED_ENGINE_LENGTHS = [int(n) + 16 for n in np.random.default_rng(
+    SEED).integers(128, 513, size=8)]
+
+
+def paged_work(q, kp, ln):
+    """Bytes (q, the valid tokens' K and V rows, their page-table entries
+    and the lengths read once, the output written once) and flops (q.k and
+    p.v a query head) of paged decode at these lengths."""
+    B, H, D = q.shape
+    T, KV = kp.shape[1], kp.shape[2]
+    lengths = [int(n) for n in ln.tolist()]
+    tokens, esize = sum(lengths), q.element_size()
+    groups = sum(-(-n // T) for n in lengths)
+    return (2 * q.numel() * esize + 2 * tokens * KV * D * esize
+            + groups * 4 + B * 4, 4 * tokens * H * D)
+
+
+def paged_timing(what, lengths):
+    """Both clocks for the kernel at the launcher's split, its plain
+    version and SDPA on the K/V gathered through the page table (masked
+    past each length), bf16 at the Gemma-7B decode shape; returns them
+    with the bound and the cold input sets."""
+    def make():
+        return paged_case(**PAGED_GEMMA, dtype=torch.bfloat16,
+                          lengths=lengths)
+
+    sets = cold_sets(make)
+    case = sets[0]
+    q, kp, vp, pt, ln = case
+    ms = time_ms(lambda: ops.paged_flash_decode(*case), runs=50)
+    plain_ms = time_ms(lambda: pa.paged_attention_ref(*case), runs=20)
+    B, H, D = q.shape
+    T, KV = kp.shape[1], kp.shape[2]
+    S = pt.shape[1] * T
+    mask = (torch.arange(S, device=DEV)[None, :] < ln[:, None].long())
+    mask = mask[:, None, None, :]
+
+    def gathered(q_, kp_, vp_, pt_, _):
+        return (q_[:, :, None], *(
+            p[pt_.long()].reshape(B, S, KV, D).transpose(1, 2).contiguous()
+            for p in (kp_, vp_)))
+
+    lib_sets = [gathered(*s) for s in sets]
+    library_ms = time_ms(lambda: sdpa(*lib_sets[0], attn_mask=mask),
+                         runs=20)
+    dev_ms = device_ms(ops.paged_flash_decode, sets)
+    lib_dev_ms = device_ms(lambda *a: sdpa(*a, attn_mask=mask), lib_sets)
+    del lib_sets
+    work = paged_work(q, kp, ln)
+    bound = bound_of(*work)
+    split = pa.auto_split_tokens(H, KV, T, S, D, q.element_size(),
+                                 torch.cuda.get_device_properties(0)
+                                 .multi_processor_count)
+    print(f"  gemma {what} bf16 (B={B} T={T} lengths {lengths}, the "
+          f"launcher's split of {split} tokens): plain {plain_ms:.4f} ms "
+          f"({work[0]} bytes, {work[1]} flops)")
+    clocks(f"gemma {what}", ms, dev_ms, bound, library_ms, lib_dev_ms,
+           "sdpa")
+    return ms, plain_ms, bound, library_ms, dev_ms, lib_dev_ms, sets
+
+
+def paged_graph_replay():
+    """A CUDA graph of one call at the Gemma-7B decode shape, replayed with
+    the lengths changed in place between replays: each replay must equal
+    a fresh call bit for bit (the merge counters are back at 0) and the
+    plain version within TOL."""
+    case = paged_case(**PAGED_GEMMA, dtype=torch.bfloat16,
+                      lengths=PAGED_RECORD_LENGTHS, seed=7)
+    ln = case[4]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # built and opted in before the capture
+        ops.paged_flash_decode(*case)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = ops.paged_flash_decode(*case)
+    worst = worst_rel = 0.0
+    for lengths in (PAGED_RECORD_LENGTHS, PAGED_ENGINE_LENGTHS,
+                    PAGED_RECORD_LENGTHS[::-1], PAGED_RECORD_LENGTHS):
+        ln.copy_(torch.tensor(lengths, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        fresh = ops.paged_flash_decode(*case)
+        torch.cuda.synchronize()
+        check(torch.equal(out, fresh), f"paged decode graph replay at "
+                                       f"lengths {lengths} differs from a "
+                                       f"fresh call")
+        err, rel = paged_close(out, pa.paged_attention_ref(*case), ln,
+                               f"paged decode graph replay {lengths}")
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+    del graph
+    print(f"  paged decode CUDA graph replayed at 4 length sets (changed "
+          f"in place): equal to a fresh call bit for bit, max abs err "
+          f"{worst:.3e} (tol {TOL[torch.bfloat16]}); rows of {PAGED_LONG} "
+          f"tokens or more: norm-relative err {worst_rel:.3e} (bar "
+          f"{FLASH_REL_TOL[torch.bfloat16]})")
+
+
 def kernels_paged():
-    # the Gemma-7B decode shape of the main path: B=8 slots, 16 heads of
-    # 256, 16-token groups, 128 groups (max_seq 2048) per slot
-    gemma = dict(B=8, H=16, KV=16, D=256, T=16, maxg=128)
-    gemma_lengths = [1, 16, 17, 2048, 300, 777, 1500, 64]
     shapes = [
-        (gemma, gemma_lengths),
+        (PAGED_GEMMA, PAGED_RECORD_LENGTHS),
         (dict(B=4, H=8, KV=2, D=128, T=64, maxg=8), None),     # T=64
         (dict(B=1, H=2, KV=2, D=8, T=16, maxg=2), None),       # CPU tests'
         (dict(B=2, H=8, KV=2, D=16, T=32, maxg=3), None),      # GQA
@@ -409,50 +537,37 @@ def kernels_paged():
     for i, (shape, lengths) in enumerate(shapes):
         for dtype in (torch.bfloat16, torch.float32):
             case = paged_case(**shape, dtype=dtype, lengths=lengths, seed=i)
-            err = close(ops.paged_flash_decode(*case),
-                        pa.paged_attention_ref(*case),
-                        f"paged_flash_decode {shape}")
+            err, rel = paged_close(ops.paged_flash_decode(*case),
+                                   pa.paged_attention_ref(*case), case[4],
+                                   f"paged_flash_decode {shape}")
             errs[(i, dtype)] = err
-            print(f"  paged_flash_decode {shape} {str(dtype)[6:]}: "
-                  f"max abs err {err:.3e} (tol {TOL[dtype]})")
+            line = (f"  paged_flash_decode {shape} {str(dtype)[6:]}: "
+                    f"max abs err {err:.3e} (tol {TOL[dtype]})")
+            if rel is not None:
+                line += (f"; rows of {PAGED_LONG} tokens or more: "
+                         f"norm-relative err {rel:.3e} (bar "
+                         f"{FLASH_REL_TOL[dtype]})")
+            print(line)
+    paged_graph_replay()
 
-    # timing at the Gemma-7B shape, bf16
-    case = paged_case(**gemma, dtype=torch.bfloat16, lengths=gemma_lengths)
-    q, kp, vp, pt, ln = case
-    ms = time_ms(lambda: ops.paged_flash_decode(*case), runs=50)
-    sweep = {nw: time_ms(lambda: ops.paged_flash_decode(
-        *case, num_warps=nw), runs=20) for nw in pa.NUM_WARPS}
-    plain_ms = time_ms(lambda: pa.paged_attention_ref(*case), runs=20)
-    B, H, D = q.shape
-    T, KV = kp.shape[1], kp.shape[2]
-    S = pt.shape[1] * T
-    k_dense = kp[pt.long()].reshape(B, S, KV, D).transpose(1, 2).contiguous()
-    v_dense = vp[pt.long()].reshape(B, S, KV, D).transpose(1, 2).contiguous()
-    mask = (torch.arange(S, device=DEV)[None, :] < ln[:, None].long())
-    mask = mask[:, None, None, :]
-    q4 = q[:, :, None, :]
-    library_ms = time_ms(lambda: sdpa(q4, k_dense, v_dense, attn_mask=mask),
-                         runs=20)
-    dev_ms = device_ms(ops.paged_flash_decode, cold_sets(lambda: paged_case(
-        **gemma, dtype=torch.bfloat16, lengths=gemma_lengths)))
-    lib_dev_ms = device_ms(
-        lambda *a: sdpa(*a, attn_mask=mask),
-        cold_sets(lambda: (q4.clone(), k_dense.clone(), v_dense.clone())))
-    # least work: read q, the valid tokens' K and V rows, their page-table
-    # entries and the lengths once; write the output once
-    tokens = int(ln.sum())
-    esize = q.element_size()
-    groups = sum(-(-int(n) // T) for n in ln.tolist())
-    bytes_moved = (q.numel() * esize + 2 * tokens * KV * D * esize
-                   + groups * 4 + B * 4 + q.numel() * esize)
-    flops = 4 * tokens * H * D  # q.k and p.v, per query head
-    bound = bound_of(bytes_moved, flops)
-    print(f"  gemma decode shape bf16 (the launcher's block size): plain "
-          f"{plain_ms:.4f} ms ({bytes_moved} bytes, {flops} flops)")
-    clocks("gemma decode shape", ms, dev_ms, bound, library_ms, lib_dev_ms,
-           "sdpa")
-    print("  num_warps sweep (ms): " + ", ".join(
-        f"{nw}: {t:.4f}" for nw, t in sweep.items()))
+    timed = paged_timing("record shape", PAGED_RECORD_LENGTHS)
+    ms, plain_ms, bound, library_ms, dev_ms, lib_dev_ms, sets = timed
+    # every split of the sweep against the plain version, device-only
+    want = pa.paged_attention_ref(*sets[0])
+    sweep = {}
+    for st in (16, 32, 64, 128, 256, 512, 1024, 2048):
+        def call(*a):
+            return pa.paged_flash_decode_cuda(*a, split_tokens=st)
+
+        err, rel = paged_close(call(*sets[0]), want, sets[0][4],
+                               f"paged split_tokens {st}")
+        sweep[st] = (device_ms(call, sets), err, rel)
+    del sets, want
+    print(f"  split_tokens sweep at the record shape, device-only ms (max "
+          f"abs err, norm-relative err of the rows of {PAGED_LONG} tokens or "
+          f"more): " + ", ".join(f"{st}: {t:.4f} ({e:.2e}, {r:.2e})"
+                                 for st, (t, e, r) in sweep.items()))
+    paged_timing("engine shape", PAGED_ENGINE_LENGTHS)
     return record("paged_flash_decode", errs[(0, torch.bfloat16)], ms,
                   plain_ms, bound, library_ms, dev_ms, lib_dev_ms)
 
@@ -1250,13 +1365,6 @@ def phase_autotune_serve(model, params, prompts, max_new, untuned):
     check(engine.group_pages == tuned["pages_per_block"],
           f"group size {engine.group_pages} pages, tuned "
           f"{tuned['pages_per_block']}")
-    runtime = {"B": 8, "S": engine.max_groups * engine.group_tokens,
-               "H": cfg.n_heads, "KV": cfg.n_kv_heads, "D": cfg.head_dim_}
-    warps = ops._resolve("paged_attention", runtime, torch.bfloat16, DEV,
-                         {"num_warps": None})["num_warps"]
-    check(warps == tuned["num_warps"],
-          f"ops resolves num_warps {warps}, the tuned entry has "
-          f"{tuned['num_warps']}")
     for toks in res.tokens:
         check(len(toks) == max_new and all(0 <= t < cfg.vocab_size
                                            for t in toks),
@@ -1267,8 +1375,7 @@ def phase_autotune_serve(model, params, prompts, max_new, untuned):
     total = sum(len(t) for t in res.tokens)
     print(f"  adopted group size {engine.group_pages} pages "
           f"({engine.group_tokens} tokens), pool {engine.pool_groups} "
-          f"groups; paged num_warps resolved {warps} (0 = the launcher's "
-          f"choice); decode_attention tuned "
+          f"groups; decode_attention tuned "
           f"{engine.kernel_blocks['decode_attention']}")
     print(f"  serve: decode {res.decode_tokens_per_sec:.2f} tok/s tuned vs "
           f"{untuned.decode_tokens_per_sec:.2f} untuned (phase 5), "

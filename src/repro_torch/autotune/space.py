@@ -6,11 +6,11 @@ tuner stack (LHS + RRS, budget, cache, report) drives kernel autotuning
 exactly like it drives any other system's knobs.
 
 Per kernel: the knob space (the kernel's tile sizes, named as in the
-reference, plus ``num_warps`` for paged decode and RMSNorm: the CUDA
-block is ``num_warps * 32`` threads, and 0 leaves the block size to the C
+reference, plus ``num_warps`` for RMSNorm: the CUDA block is
+``num_warps * 32`` threads, and 0 leaves the block size to the C
 launcher, which takes the most warps the kernel's registers allow; flash
-attention, dense decode and GLA have no ``num_warps``, their designs
-fixing the block), an input builder for a problem signature, a call
+attention, dense and paged decode and GLA have no ``num_warps``, their
+designs fixing the block), an input builder for a problem signature, a call
 adapter, a roofline cost model and the block's shared-memory footprint.
 
 The cost model (``mode="model"``, what the CPU tests run) scores a config
@@ -243,13 +243,15 @@ def _fd_cost(config, d, dtype):
 
 
 # -- paged decode attention --------------------------------------------------
+# No num_warps knob: the block is dense decode's 256 threads by design.
+# No split knob either (the reference's space has none): the launcher cuts
+# the pool's capacity to fill the card (paged_attention.auto_split_tokens).
 def _pa_space() -> ParameterSpace:
     # pages_per_block is the pool-layout granularity: the serve engine's
     # allocator adopts the tuned value as its group size, so the knob
     # couples the kernel's page-table walk with allocator fragmentation.
     return ParameterSpace([
         EnumParam("pages_per_block", (1, 2, 4, 8, 16, 32), 4),
-        EnumParam("num_warps", _WARPS, 0),
     ])
 
 
@@ -295,27 +297,36 @@ def _pa_call(inputs, config):
         inputs["pools"][T] = _pa_pool(inputs, T)
     k_pages, v_pages, pt, lengths = inputs["pools"][T]
     return paged_flash_decode_cuda(inputs["q"], k_pages, v_pages, pt,
-                                   lengths, num_warps=config["num_warps"])
+                                   lengths)
 
 
 def _pa_smem(config, d, dtype):
     from repro_torch.kernels.paged_attention import smem_bytes
 
-    return smem_bytes(d["H"], d["KV"], d["D"])
+    return smem_bytes(d["H"], d["KV"], d["D"], dtype)
 
 
 def _pa_cost(config, d, dtype):
+    from repro_torch.kernels.decode_attention import THREADS, head_tile
+    from repro_torch.kernels.paged_attention import auto_split_tokens
+
     B, S, H, KV, D = d["B"], d["S"], d["H"], d["KV"], d["D"]
     T = int(config["pages_per_block"]) * _page_tokens()
     ng = math.ceil(S / T)
     ib = _dtype_bytes(dtype)
+    split = auto_split_tokens(H, KV, T, ng * T, D, ib, SM_COUNT)
+    n_split = math.ceil(ng * T / split)
+    n_tiles = math.ceil(H // KV / head_tile(H, KV))
     flops = 4.0 * B * H * S * D
-    # the pool once, q in and out, and the page-table walk: one entry a
-    # group, read by every warp of the block that crosses it
-    hbm = (2.0 * B * S * KV * D * ib + 2.0 * B * H * D * ib
-           + B * KV * ng * 4.0 * 32)
-    n_blocks = B * KV * math.ceil(H // KV / 8)
-    return _roofline_s(flops, hbm, n_blocks, _warps(config, 32),
+    # the pool once a head tile, q in and out, and the page table: each
+    # block reads the entries of its split's groups once to check them
+    # (thread 0 reads them again to address its copies, from the L1)
+    hbm = (2.0 * B * S * KV * D * ib * n_tiles + 2.0 * B * H * D * ib
+           + B * KV * n_tiles * ng * 4.0)
+    if n_split > 1:  # the partials, written and read back by the merge
+        hbm += 2.0 * B * H * n_split * (D + 2) * 4
+    n_blocks = B * KV * n_tiles * n_split
+    return _roofline_s(flops, hbm, n_blocks, THREADS // 32,
                        _pa_smem(config, d, dtype))
 
 
@@ -439,7 +450,7 @@ KERNELS: Dict[str, KernelDef] = {
         _fd_space, _fd_inputs, _fd_call, _fd_cost, _fd_smem),
     "paged_attention": KernelDef(
         "paged_attention", ("B", "S", "H", "KV", "D"),
-        ("pages_per_block", "num_warps"),
+        ("pages_per_block",),
         _pa_space, _pa_inputs, _pa_call, _pa_cost, _pa_smem),
     "rmsnorm": KernelDef(
         "rmsnorm", ("ROWS", "D"),

@@ -105,66 +105,3 @@ extern "C" int repro_max_smem_per_block(int device) {
     return -1;
   return v;
 }
-
-// ---------------------------------------------------------------------------
-// Decode kernels (paged_attention.cu, decode_attention.cu): one warp's
-// lanes split the head dim, VEC elements a lane, and a block scores the
-// query heads of one KV head together, GQ at a time.
-// ---------------------------------------------------------------------------
-namespace {
-
-constexpr int kMaxHeadTile = 8;
-
-// VEC (head-dim elements per lane) and the head tile GQ (a power of two
-// >= the query heads per KV head, at most kMaxHeadTile) for a layout;
-// false for one the decode kernels do not take.
-inline bool decode_plan(int heads, int kv_heads, int head_dim, int* vec,
-                        int* tile) {
-  if (kv_heads < 1 || heads < kv_heads || heads % kv_heads != 0)
-    return false;
-  switch (head_dim) {
-    case 8: case 16: case 32: *vec = 1; break;
-    case 64: *vec = 2; break;
-    case 128: *vec = 4; break;
-    case 256: *vec = 8; break;
-    default: return false;
-  }
-  const int gq = heads / kv_heads;
-  int t = 1;
-  while (t < gq && t < kMaxHeadTile) t <<= 1;
-  *tile = t;
-  return true;
-}
-
-// f.template run<T, VEC, GQ>() for the instantiation (dtype, vec, tile)
-// names (dtype 0 = float32, 1 = bfloat16); `bad` when none does.
-template <typename T, int VEC, typename F, typename R>
-R dispatch_gq(int tile, const F& f, R bad) {
-  switch (tile) {
-    case 1: return f.template run<T, VEC, 1>();
-    case 2: return f.template run<T, VEC, 2>();
-    case 4: return f.template run<T, VEC, 4>();
-    case 8: return f.template run<T, VEC, 8>();
-  }
-  return bad;
-}
-
-template <typename T, typename F, typename R>
-R dispatch_vec(int vec, int tile, const F& f, R bad) {
-  switch (vec) {
-    case 1: return dispatch_gq<T, 1>(tile, f, bad);
-    case 2: return dispatch_gq<T, 2>(tile, f, bad);
-    case 4: return dispatch_gq<T, 4>(tile, f, bad);
-    case 8: return dispatch_gq<T, 8>(tile, f, bad);
-  }
-  return bad;
-}
-
-template <typename F, typename R>
-R dispatch_decode(int dtype, int vec, int tile, const F& f, R bad) {
-  if (dtype == 0) return dispatch_vec<float>(vec, tile, f, bad);
-  if (dtype == 1) return dispatch_vec<__nv_bfloat16>(vec, tile, f, bad);
-  return bad;
-}
-
-}  // namespace

@@ -1,7 +1,7 @@
 // Hopper plumbing shared by the kernels that stage tiles with the Tensor
-// Memory Accelerator (flash_attention.cu, decode_attention.cu): shared
-// memory addresses, mbarriers, one TMA box copy, and the tensor map of a
-// (B, S, heads, D) tensor.
+// Memory Accelerator (flash_attention.cu, decode_core.cuh): shared memory
+// addresses, mbarriers, one TMA box copy, and the tensor map of a
+// (B, S, heads, D) tensor, encoded anew or taken from a small cache.
 //
 // kernels/build.py hashes every header of csrc/ into every library's name:
 // an edit here rebuilds every kernel.
@@ -11,6 +11,9 @@
 #include <cuda.h>  // CUtensorMap; the encoder is reached through the runtime
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <mutex>
 
 namespace {
 
@@ -105,6 +108,45 @@ inline bool tensor_map_4d(CUtensorMap* map, CUtensorMapDataType dtype,
                 unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// tensor_map_4d's map, from a cache of the last kMapCache maps encoded:
+// encoding costs host time on every launch, and a caller whose tensors
+// keep their addresses from call to call (the serve engine's KV caches,
+// dense or paged, two a layer) encodes each map once.  The key is every argument, so a hit is
+// the map an encode would give.
+constexpr int kMapCache = 256;
+
+inline bool cached_tensor_map_4d(CUtensorMap* map, CUtensorMapDataType dtype,
+                                 int esize, const void* ptr, int D,
+                                 int heads, int S, int B, int box_w,
+                                 int rows, CUtensorMapSwizzle swizzle) {
+  struct Entry {
+    const void* ptr;
+    int key[9];
+    CUtensorMap map;
+  };
+  static Entry cache[kMapCache];
+  static int n_used = 0, next = 0;
+  static std::mutex mu;
+  const int key[9] = {(int)dtype, esize, D,    heads,        S,
+                      B,          box_w, rows, (int)swizzle};
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < n_used; ++i)
+    if (cache[i].ptr == ptr && !memcmp(cache[i].key, key, sizeof key)) {
+      *map = cache[i].map;
+      return true;
+    }
+  if (!tensor_map_4d(map, dtype, esize, ptr, D, heads, S, B, box_w, rows,
+                     swizzle))
+    return false;
+  Entry& e = cache[next];
+  e.ptr = ptr;
+  memcpy(e.key, key, sizeof key);
+  e.map = *map;
+  next = (next + 1) % kMapCache;
+  if (n_used < kMapCache) ++n_used;
+  return true;
 }
 
 }  // namespace

@@ -45,8 +45,10 @@ MAX_HEAD_TILE = 8    # query heads a block scores from one K/V tile
 BLOCKS_PER_SM = 2
 _ALIGN = 128         # of a TMA box's shared-memory destination
 
-# the merge counters of each (device, stream): zero between launches
-_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+# the scratch of each (device, stream): the capture it serves (0: eager
+# launches), the decode kernels' partial states and merge counters (zero
+# between launches)
+_SCRATCH: Dict[Tuple[int, int], Tuple[int, torch.Tensor, torch.Tensor]] = {}
 
 
 def tile_tokens(D: int, esize: int) -> int:
@@ -86,7 +88,7 @@ def smem_bytes(H: int, KV: int, D: int, dtype: str) -> int:
     least two floats a thread and head: the token groups' sums meet there
     at the end), the scaled f32 query and the tile's scores of the head
     tile, four softmax floats a head, the stages' barriers and the
-    last-block flag.  ``csrc/decode_attention.cu::smem_bytes`` is the same
+    last-block flag.  ``csrc/decode_core.cuh::smem_bytes`` is the same
     formula; ``chip_smoke.py`` holds the two equal."""
     esize = 2 if dtype == "bfloat16" else 4
     tk, gq = tile_tokens(D, esize), head_tile(H, KV)
@@ -105,21 +107,50 @@ def _lib():
     fn.restype = ctypes.c_int
     lib.repro_flash_decode_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.repro_flash_decode_smem_bytes.restype = ctypes.c_int
+    bind_capture(lib)
     return lib
 
 
-def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    """At least ``n`` int32 merge counters for launches on ``stream``,
-    zeroed once when made; the kernel leaves every counter at zero, so a
-    replayed CUDA graph finds them so too.  One set a stream: launches on
-    two streams at once never share a counter."""
+def bind_capture(lib) -> None:
+    """Binds ``repro_decode_capture`` (``csrc/decode_core.cuh``), which
+    both decode libraries export: the key of the CUDA-graph capture under
+    way on a stream, 0 when none."""
+    lib.repro_decode_capture.argtypes = [ctypes.c_void_p]
+    lib.repro_decode_capture.restype = ctypes.c_ulonglong
+
+
+def _scratch(device: torch.device, stream: int, capture: int,
+             n_partials: int,
+             n_counters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scratch of a decode launch on ``stream``: at least
+    ``n_partials`` f32 for the splits' partial states (m, l, acc) and at
+    least ``n_counters`` int32 merge counters, zero between launches (the
+    kernels leave every counter at zero).
+
+    One pair a (device, stream), for the eager launches on it (``capture``
+    0) or for one CUDA-graph capture on it (``capture``, the library's
+    ``repro_decode_capture``), grown as needed.  The launches that share a
+    pair run in order and each merges its partials before it ends; a
+    decode step pays no allocation a layer.  Launches on two streams never
+    share a pair, and neither do two captures, nor a capture and eager
+    launches: a capture's pair comes from its graph's memory pool (the
+    counters' zeroing one node of the graph), so no later call can grow
+    and free memory a graph points into; it is dropped, and left to the
+    graph, when the stream next launches outside that capture.  The caller
+    keeps the pair alive until the kernel is launched."""
     key = (device.index, stream)
-    c = _COUNTERS.get(key)
-    if c is None or c.numel() < n:
-        c = _COUNTERS[key] = torch.zeros(
-            max(n, 2 * (0 if c is None else c.numel())), dtype=torch.int32,
-            device=device)
-    return c
+    held = _SCRATCH.get(key)
+    if (held is None or held[0] != capture or held[1].numel() < n_partials
+            or held[2].numel() < n_counters):
+        had = ((0, 0) if held is None or held[0] != capture
+               else (held[1].numel(), held[2].numel()))
+        held = _SCRATCH[key] = (
+            capture,
+            torch.empty(max(n_partials, 2 * had[0]), dtype=torch.float32,
+                        device=device),
+            torch.zeros(max(n_counters, 2 * had[1]), dtype=torch.int32,
+                        device=device))
+    return held[1], held[2]
 
 
 def _check(q, k, v, kv_len, block_kv) -> None:
@@ -185,25 +216,23 @@ def flash_decode_cuda(
                                  _sm_count(q.device.index or 0))
     block_kv = min(block_kv, S)
     _check(q, k, v, kv_len, block_kv)
-    n_split = -(-S // block_kv)
+    rows = B * H * -(-S // block_kv)  # partial states: a row a split
     out = torch.empty_like(q)
-    part_ml = torch.empty((2, B, H, n_split), dtype=torch.float32,
-                          device=q.device)
-    part_acc = torch.empty((B, H, n_split, D), dtype=torch.float32,
-                           device=q.device)
     if isinstance(kv_len, torch.Tensor):
         len_ptr, len_value = kv_len.data_ptr(), 0
     else:
         len_ptr, len_value = None, int(kv_len)
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    counters = _counters(q.device, stream,
-                         B * KV * -(-(H // KV) // head_tile(H, KV)))
+    partials, counters = _scratch(
+        q.device, stream, lib.repro_decode_capture(stream), rows * (D + 2),
+        B * KV * -(-(H // KV) // head_tile(H, KV)))
+    part = partials.data_ptr()
     err = lib.repro_flash_decode(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), len_ptr, len_value,
-        part_ml[0].data_ptr(), part_ml[1].data_ptr(), part_acc.data_ptr(),
-        counters.data_ptr(), out.data_ptr(), B, S, H, KV, D,
-        build.DTYPE_CODE[q.dtype], block_kv, stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), len_ptr, len_value, part,
+        part + 4 * rows, part + 8 * rows, counters.data_ptr(),
+        out.data_ptr(), B, S, H, KV, D, build.DTYPE_CODE[q.dtype], block_kv,
+        stream)
     if err:
         raise RuntimeError(
             f"flash decode kernel launch failed: "

@@ -32,19 +32,19 @@ __all__ = ["flash_attention", "flash_decode", "paged_flash_decode",
 
 # num_warps 0 leaves the CUDA block size to each kernel's launcher, which
 # takes the most warps the kernel's registers allow (bounded by the
-# tile's rows or entries); the tile sizes are each kernel space's default.
-# Flash attention's default is the fastest tile pair of the card's bf16
-# grid at Gemma-7B's train_4k among those that fit a block in both dtypes
-# at D=256 (PERF.md).  Flash attention, dense decode and GLA have no
-# num_warps knob: their designs fix the block.  Dense decode's block_kv 0
-# leaves the split to its launcher, which cuts the cache to fill the card.
-# pages_per_block is the pool's group size: the serve engine resolves it
-# when it lays the pool out (the allocator group IS the kernel's page
-# tile); only num_warps resolves here.
+# tile's rows); the tile sizes are each kernel space's default.  Flash
+# attention's default is the fastest tile pair of the card's bf16 grid at
+# Gemma-7B's train_4k among those that fit a block in both dtypes at
+# D=256 (PERF.md).  Flash attention, dense and paged decode and GLA have
+# no num_warps knob: their designs fix the block.  Dense decode's
+# block_kv 0 leaves the split to its launcher, which cuts the cache to
+# fill the card.  pages_per_block is the pool's group size: the serve
+# engine resolves it when it lays the pool out (the allocator group IS
+# the kernel's page tile), so nothing of paged decode resolves here.
 DEFAULT_BLOCKS: Dict[str, Dict[str, Any]] = {
     "flash_attention": {"block_q": 64, "block_kv": 32},
     "decode_attention": {"block_kv": 0},
-    "paged_attention": {"pages_per_block": 4, "num_warps": 0},
+    "paged_attention": {"pages_per_block": 4},
     "rmsnorm": {"block_rows": 4, "num_warps": 0},
     "gla": {"chunk": 128},
 }
@@ -147,23 +147,14 @@ def flash_decode(q, k, v, kv_len, *, block_kv: Optional[int] = None):
     return flash_decode_cuda(q, k, v, kv_len, block_kv=blocks["block_kv"])
 
 
-def paged_flash_decode(q, k_pages, v_pages, page_table, lengths, *,
-                       num_warps: Optional[int] = None):
+def paged_flash_decode(q, k_pages, v_pages, page_table, lengths):
     """Paged decode attention over a (groups, tokens, KV, D) pool:
     q (B, H, D), page_table (B, MAXG) int32, lengths (B,) int32 ->
     (B, H, D) in q's dtype.
 
     The pool's group size (``pages_per_block``) is baked into its layout
     by the caller (the serve engine sizes its allocator groups from the
-    tuned config); ``num_warps`` resolves through the autotune cache here,
-    keyed at the pool's logical capacity S = MAXG * T so the engine's
-    tuning entry and this consult point agree.
+    tuned config); the kernel has no other launch knob, so nothing
+    resolves here and a decode step's 28 calls pay no lookup.
     """
-    B, H, D = q.shape
-    T, KV = k_pages.shape[1], k_pages.shape[2]
-    blocks = _resolve(
-        "paged_attention",
-        {"B": B, "S": page_table.shape[1] * T, "H": H, "KV": KV, "D": D},
-        q.dtype, q.device, {"num_warps": num_warps})
-    return paged_flash_decode_cuda(q, k_pages, v_pages, page_table, lengths,
-                                   num_warps=blocks["num_warps"])
+    return paged_flash_decode_cuda(q, k_pages, v_pages, page_table, lengths)

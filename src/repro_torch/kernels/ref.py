@@ -6,9 +6,10 @@ kernels are checked against), ``rmsnorm_ref`` and ``gla_ref`` (the
 O(S²) oracle of gated linear attention; the GLA kernel's plain version is
 the chunked ``models.gla.chunked_gla``).
 
-Two more follow a CUDA kernel's own algorithm on the CPU, for the tests
-(nothing on a model path calls them): ``decode_split_ref`` (the dense
-decode kernel's split partials merged in split order) and
+Three more follow a CUDA kernel's own algorithm on the CPU, for the
+tests (nothing on a model path calls them): ``decode_split_ref`` (the
+dense decode kernel's split partials merged in split order),
+``paged_split_ref`` (the same through the paged kernel's page table) and
 ``gla_chunk_parallel_ref`` (the GLA kernel's chunk states, scan over
 chunks and outputs, optionally with its operands rounded as its 3xTF32
 tensor-core products round them).
@@ -21,7 +22,8 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = ["attention_ref", "rmsnorm_ref", "gla_ref", "cumsum_f32",
-           "decode_split_ref", "gla_chunk_parallel_ref", "tf32_round"]
+           "decode_split_ref", "paged_split_ref", "gla_chunk_parallel_ref",
+           "tf32_round"]
 
 
 def cumsum_f32(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -128,15 +130,26 @@ def decode_split_ref(
     if n == 0:
         return torch.zeros_like(q)
     qg = q.reshape(B, KV, H // KV, D).float() / math.sqrt(D)
+    out = torch.stack([_split_merge(qg[b], k[b, :n].float(),
+                                    v[b, :n].float(), min(block_kv, S))
+                       for b in range(B)])
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def _split_merge(qg, k, v, split):
+    """softmax(qg . k^T) v for one sequence, qg (KV, G, D) scaled, k and
+    v (n, KV, D) f32, as the decode kernels compute it: each split of
+    ``split`` tokens gives a partial state (its max m, its sum l of
+    exp(s - m), its acc = sum exp(s - m) v), and the partials merge in
+    split order into acc / max(l, 1e-30)."""
     ms, ls, accs = [], [], []
-    for t0 in range(0, n, min(block_kv, S)):
-        t1 = min(t0 + block_kv, n)
-        s = torch.einsum("bkgd,bskd->bkgs", qg, k[:, t0:t1].float())
+    for t0 in range(0, k.shape[0], split):
+        s = torch.einsum("kgd,skd->kgs", qg, k[t0:t0 + split])
         m = s.amax(dim=-1)
         p = torch.exp(s - m[..., None])
         ms.append(m)
         ls.append(p.sum(dim=-1))
-        accs.append(torch.einsum("bkgs,bskd->bkgd", p, v[:, t0:t1].float()))
+        accs.append(torch.einsum("kgs,skd->kgd", p, v[t0:t0 + split]))
     mx = torch.stack(ms).amax(dim=0)
     den = torch.zeros_like(mx)
     acc = torch.zeros_like(accs[0])
@@ -144,8 +157,42 @@ def decode_split_ref(
         w = torch.exp(m - mx)
         den = den + l_ * w
         acc = acc + a * w[..., None]
-    out = acc / den.clamp_min(1e-30)[..., None]
-    return out.reshape(B, H, D).to(q.dtype)
+    return acc / den.clamp_min(1e-30)[..., None]
+
+
+def paged_split_ref(
+    q: torch.Tensor,           # (B, H, D)
+    k_pages: torch.Tensor,     # (G, T, KV, D)
+    v_pages: torch.Tensor,     # (G, T, KV, D)
+    page_table: torch.Tensor,  # (B, MAXG) int32
+    lengths: torch.Tensor,     # (B,) int32
+    split_tokens: int,
+) -> torch.Tensor:
+    """Paged decode attention as ``csrc/paged_attention.cu`` computes it:
+    row b's tokens below lengths[b], read through its page-table row, cut
+    into splits of ``split_tokens``; each split's partial state merged in
+    split order (``_split_merge``).  Zeros where a length is 0, as the
+    kernel and ``paged_flash_decode_pallas`` give; NaN where a length is
+    outside [0, MAXG * T] or a group the row reads has a page-table entry
+    outside [0, G), as the kernel gives."""
+    B, H, D = q.shape
+    G, T, KV, _ = k_pages.shape
+    maxg = page_table.shape[1]
+    out = torch.zeros((B, H, D), dtype=torch.float32, device=q.device)
+    for b in range(B):
+        n = int(lengths[b])
+        if n == 0:
+            continue
+        groups = page_table[b, :-(-n // T)].long()
+        if not 0 < n <= maxg * T or bool(((groups < 0) | (groups >= G))
+                                         .any()):
+            out[b] = float("nan")
+            continue
+        k = k_pages[groups].reshape(-1, KV, D)[:n].float()
+        v = v_pages[groups].reshape(-1, KV, D)[:n].float()
+        qg = q[b].reshape(KV, H // KV, D).float() / math.sqrt(D)
+        out[b] = _split_merge(qg, k, v, split_tokens).reshape(H, D)
+    return out.to(q.dtype)
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:

@@ -240,9 +240,11 @@ class ServeEngine:
         """Fix the pool geometry: group size (pages), groups per request,
         total groups.  With autotune the paged kernel's tuned
         ``pages_per_block`` becomes the group size — clamped so one
-        max_seq request still fits the configured page budget — and the
-        winner is re-keyed under the runtime pool signature so the
-        ``ops.paged_flash_decode`` consult point hits it."""
+        max_seq request still fits the configured page budget.  The
+        reference also re-keys the winner under the runtime pool
+        signature for its run-time consult point; the port's paged kernel
+        has no launch knob besides the group size, so nothing would read
+        such an entry."""
         cfg, mcfg = self.cfg, self.model.cfg
         ppb = cfg.kv_page_block
         if cfg.autotune_kernels:
@@ -269,37 +271,6 @@ class ServeEngine:
                                    self.max_groups + 1)
         # the config reports the pool actually allocated
         cfg.kv_cache_pages = self.pool_groups * ppb
-        if cfg.autotune_kernels:
-            self._rekey_paged_entry()
-
-    def _rekey_paged_entry(self) -> None:
-        """Persist the paged winner under the dims the pool actually runs
-        (S = max_groups * group_tokens), so the runtime consult point in
-        ``ops.paged_flash_decode`` resolves the tuned launch knobs."""
-        mcfg = self.model.cfg
-        logical = {"B": self.cfg.batch_slots, "S": self.cfg.max_seq,
-                   "H": mcfg.n_heads, "KV": mcfg.n_kv_heads,
-                   "D": mcfg.head_dim_}
-        runtime = dict(logical, S=self.max_groups * self.group_tokens)
-        if runtime == logical:
-            return
-        cache = autotune.default_cache()
-        backend = autotune.backend_name(self.device)
-        entry = cache.get("paged_attention", autotune.shape_sig(logical),
-                          mcfg.compute_dtype, backend)
-        if not entry:
-            return
-        # engines built again and again at one shape skip the full-file
-        # cache rewrite when the entry already landed
-        existing = cache.get_config("paged_attention",
-                                    autotune.shape_sig(runtime),
-                                    mcfg.compute_dtype, backend)
-        if existing == entry["config"]:
-            return
-        cache.put("paged_attention", autotune.shape_sig(runtime),
-                  mcfg.compute_dtype, backend, entry["config"],
-                  entry["value"],
-                  meta=dict(entry.get("meta", {}), rekeyed_from="logical"))
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

@@ -73,12 +73,24 @@ def test_kernel_matches_plain_version(card, dtype, B, H, KV, D, T, maxg):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("num_warps", [None, 1, 2, 8, 16])
-def test_kernel_num_warps(card, num_warps):
-    case = _case(3, 8, 2, 64, 16, 5, torch.float32, seed=1)
-    got = ops.paged_flash_decode(*case, num_warps=num_warps)
-    torch.testing.assert_close(got, pa.paged_attention_ref(*case),
-                               rtol=2e-5, atol=2e-5)
+@pytest.mark.parametrize("dtype,split_tokens", [
+    (torch.float32, None), (torch.float32, 32), (torch.float32, 64),
+    (torch.float32, 256), (torch.bfloat16, None), (torch.bfloat16, 64),
+    (torch.bfloat16, 192), (torch.bfloat16, 256),
+], ids=["f32-auto", "f32-32", "f32-64", "f32-one-split", "bf16-auto",
+        "bf16-64", "bf16-192", "bf16-one-split"])
+def test_kernel_split_tokens(card, dtype, split_tokens):
+    """Splits of 2 to 12 groups of 16 (the f32 tile at D=64 is 32 tokens,
+    the bf16 one 64) and one split a row; lengths that end inside a
+    split's last group (55, 250), inside a first group (17) and at the
+    capacity (256)."""
+    q, kp, vp, pt, _ = _case(4, 8, 2, 64, 16, 16, dtype, seed=1)
+    ln = torch.tensor([55, 250, 17, 256], dtype=torch.int32, device="cuda")
+    got = pa.paged_flash_decode_cuda(q, kp, vp, pt, ln,
+                                     split_tokens=split_tokens)
+    torch.testing.assert_close(
+        got.float(), pa.paged_attention_ref(q, kp, vp, pt, ln).float(),
+        rtol=TOL[dtype], atol=TOL[dtype])
 
 
 @pytest.mark.cuda
@@ -89,6 +101,124 @@ def test_out_of_range_page_table_gives_nan_rows(card):
     out = ops.paged_flash_decode(q, kp, vp, pt, ln)
     assert torch.isnan(out[1]).all()
     assert torch.isfinite(out[0]).all()
+
+
+@pytest.mark.cuda
+def test_paged_graph_replay_with_changed_lengths(card):
+    """A captured CUDA graph of the call, replayed twice with the lengths
+    changed in place between the replays (and once more at the first):
+    each replay equals a fresh call bit for bit, so the merge counters
+    were back at 0, and the plain version within tolerance."""
+    q, kp, vp, pt, ln = _case(8, 16, 16, 256, 16, 32, torch.bfloat16,
+                              seed=2)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # built and opted in before the capture
+        ops.paged_flash_decode(q, kp, vp, pt, ln)
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = ops.paged_flash_decode(q, kp, vp, pt, ln)
+    for lengths in ([512, 1, 17, 300, 64, 511, 129, 2],
+                    [3, 500, 256, 16, 480, 33, 1, 512],
+                    [512, 1, 17, 300, 64, 511, 129, 2]):
+        ln.copy_(torch.tensor(lengths, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, ops.paged_flash_decode(q, kp, vp, pt, ln))
+        torch.testing.assert_close(
+            out.float(), pa.paged_attention_ref(q, kp, vp, pt, ln).float(),
+            rtol=TOL[torch.bfloat16], atol=TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_graph_replay_after_the_stream_scratch_grew(card):
+    """Graphs of a paged and a dense decode call captured on one stream,
+    then eager calls on that stream at shapes that need more scratch than
+    any before (the stream's eager buffers are replaced and the old ones
+    freed), then a replay of each graph: each capture took partials and
+    counters of its own from its graph's pool, so each replay equals a
+    fresh call bit for bit."""
+    paged = _case(8, 16, 16, 256, 16, 32, torch.bfloat16, seed=6)
+    dense = tuple(_randn((4, 512, 2, 64) if i else (4, 8, 64),
+                         torch.bfloat16, 10 + i) for i in range(3))
+    kv_len = torch.tensor(300, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # built and opted in before capture
+        ops.paged_flash_decode(*paged)
+        ops.flash_decode(*dense, kv_len)
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    key = (paged[0].device.index, stream.cuda_stream)
+    small = fd._SCRATCH[key]  # the stream's eager scratch
+    graphs = [torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()]
+    with torch.cuda.graph(graphs[0], stream=stream):
+        out_paged = ops.paged_flash_decode(*paged)
+    with torch.cuda.graph(graphs[1], stream=stream):
+        out_dense = ops.flash_decode(*dense, kv_len)
+    assert fd._SCRATCH[key][0] != 0  # the last capture's own
+    with torch.cuda.stream(stream):
+        ops.paged_flash_decode(*_case(32, 16, 16, 256, 16, 32,
+                                      torch.bfloat16, seed=7))
+        ops.flash_decode(*(t.repeat(8, *(1,) * (t.dim() - 1))
+                           for t in dense), kv_len)
+        torch.cuda.synchronize()
+        for g in graphs:
+            g.replay()
+    torch.cuda.synchronize()
+    assert small[0] == 0 and fd._SCRATCH[key][0] == 0
+    assert fd._SCRATCH[key][1].numel() > small[1].numel()
+    assert torch.equal(out_paged, ops.paged_flash_decode(*paged))
+    assert torch.equal(out_dense, ops.flash_decode(*dense, kv_len))
+
+
+@pytest.mark.cuda
+def test_bad_entry_in_a_later_split_gives_a_nan_row(card):
+    """A page-table entry past the pool inside the third split of a row,
+    a negative one in another row's first split, and a length past the
+    capacity: those rows are NaN after the merge; the others are right."""
+    q, kp, vp, pt, ln = _case(4, 4, 2, 64, 16, 8, torch.float32, seed=3)
+    ln.copy_(torch.tensor([100, 90, 70, 129], dtype=torch.int32))
+    want = pa.paged_attention_ref(q, kp, vp, pt, ln.clamp(max=128))
+    pt[0, 5] = kp.shape[0]  # tokens 80..95: the third split of 32
+    pt[1, 0] = -1
+    got = pa.paged_flash_decode_cuda(q, kp, vp, pt, ln, split_tokens=32)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[0]).all() and torch.isnan(got[1]).all()
+    assert torch.isnan(got[3]).all()  # 129 > 8 groups of 16
+    torch.testing.assert_close(got[2], want[2], rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_tokens", [None, 32])
+def test_zero_length_gives_zeros(card, split_tokens):
+    """A row of length 0 gives zeros, as the Pallas kernel does (the
+    plain version gives the mean of V there); the other rows are right."""
+    q, kp, vp, pt, ln = _case(3, 8, 2, 64, 16, 6, torch.float32, seed=4)
+    ln.copy_(torch.tensor([0, 70, 5], dtype=torch.int32))
+    got = pa.paged_flash_decode_cuda(q, kp, vp, pt, ln,
+                                     split_tokens=split_tokens)
+    want = pa.paged_attention_ref(q, kp, vp, pt, ln)
+    torch.cuda.synchronize()
+    assert (got[0] == 0).all()
+    torch.testing.assert_close(got[1:], want[1:], rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_tokens", [None, 32, 96])
+def test_tile_spanning_two_groups(card, split_tokens):
+    """bf16 at D=128 with T=16: a 32-token tile is two TMA boxes, one a
+    group, from groups far apart in the pool; lengths that end in a
+    tile's first and second group."""
+    q, kp, vp, pt, _ = _case(4, 16, 4, 128, 16, 12, torch.bfloat16, seed=5)
+    ln = torch.tensor([8, 24, 191, 150], dtype=torch.int32, device="cuda")
+    got = pa.paged_flash_decode_cuda(q, kp, vp, pt, ln,
+                                     split_tokens=split_tokens)
+    torch.testing.assert_close(
+        got.float(), pa.paged_attention_ref(q, kp, vp, pt, ln).float(),
+        rtol=TOL[torch.bfloat16], atol=TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda
@@ -243,7 +373,7 @@ def test_flash_decode_is_bitwise_repeatable_and_graph_safe(card):
     assert torch.equal(first, ops.flash_decode(q, k, v, kl, block_kv=128))
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):  # the counters of the capture stream
+    with torch.cuda.stream(stream):  # built and opted in before the capture
         ops.flash_decode(q, k, v, kl, block_kv=128)
     torch.cuda.current_stream().wait_stream(stream)
     torch.cuda.synchronize()

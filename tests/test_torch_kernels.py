@@ -7,10 +7,12 @@ run in interpret mode, on the same numpy inputs and the shapes of
 ``paged_flash_decode_pallas``, ``flash_attention`` against
 ``flash_attention_pallas``, ``flash_decode`` against
 ``flash_decode_pallas`` and ``rmsnorm`` against ``rmsnorm_pallas``.
-``kernels.ref.decode_split_ref``, which follows the CUDA decode kernel's
-split-and-merge algorithm, is held to ``flash_decode_pallas`` and to
-``decode_attention_ref`` too.  Tolerances are the reference's own kernel
-tolerances (``tests/test_kernels.py::TOL``): f32 2e-5, bf16 2e-2.
+``kernels.ref.decode_split_ref`` and ``paged_split_ref``, which follow
+the CUDA decode kernels' split-and-merge algorithm (the paged one
+through the page table), are held to ``flash_decode_pallas`` and
+``paged_flash_decode_pallas`` and to the plain versions too. Tolerances
+are the reference's own kernel tolerances
+(``tests/test_kernels.py::TOL``): f32 2e-5, bf16 2e-2.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -27,10 +29,11 @@ from repro_torch import autotune
 from repro_torch.kernels import decode_attention as fd
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels.paged_attention import _check, paged_attention_ref
 from repro_torch.kernels.ref import (attention_ref, decode_split_ref,
-                                     rmsnorm_ref)
+                                     paged_split_ref, rmsnorm_ref)
 
 torch.set_num_threads(1)
 
@@ -89,6 +92,105 @@ def test_paged_decode_matches_pallas_interpret(dtype, B, H, KV, D, T, maxg):
     assert got.dtype == DTYPES[dtype][1] and tuple(got.shape) == (B, H, D)
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), **TOL[dtype])
+
+
+def _ragged_lengths(B, T, maxg, k):
+    """Row lengths of the k-th case: 0, 1, inside the first group, inside
+    a later group of a later split, the capacity, rotated over the rows."""
+    cap = maxg * T
+    pool = [0, 1, T - 3, min(cap, 2 * T + 5), cap, T + 1, cap - 1]
+    return np.array([pool[(k + 3 * b) % len(pool)] for b in range(B)],
+                    np.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KV,D,T,maxg", SHAPES)
+def test_paged_split_ref_matches_pallas_interpret(dtype, B, H, KV, D, T,
+                                                  maxg):
+    """The CUDA paged kernel's algorithm (split partials read through a
+    permuted page table, merged in split order) against
+    ``paged_flash_decode_pallas`` in interpret mode and against
+    ``paged_attention_ref``, at splits of one and two groups: lengths of 0
+    (zeros, as the Pallas kernel gives; the plain version gives the mean
+    of V there), 1, inside a group, inside a later split and the whole
+    capacity.  The reference's tolerances: f32 2e-5, bf16 2e-2."""
+    arrs = _case(hash((B, H, KV, D, T, 2)) % 2**31, B, H, KV, D, T, maxg,
+                 dtype)
+    for k in range(3):
+        ln = _ragged_lengths(B, T, maxg, k)
+        jx, tx = _both(arrs[:4] + (ln,), dtype)
+        want = paged_flash_decode_pallas(*jx, interpret=True)
+        plain = paged_attention_ref(*tx)
+        for split in (T, 2 * T):
+            got = paged_split_ref(*tx, split_tokens=split)
+            _close(got, want, dtype)
+            live = ln > 0
+            assert bool((got[~live] == 0).all())
+            _close(got[live], np.asarray(plain[live].float()), dtype)
+
+
+def test_paged_split_ref_gives_nan_rows_where_the_kernel_does():
+    """A page-table entry outside the pool in a later split, a negative
+    one, and a length past the capacity give NaN rows, as the CUDA kernel
+    writes; the other rows are untouched."""
+    q, kp, vp, pt, _ = (torch.from_numpy(a) for a in _case(
+        3, 4, 4, 2, 16, 16, 4, "float32"))
+    ln = torch.tensor([50, 60, 30, 65], dtype=torch.int32)
+    want = paged_attention_ref(q, kp, vp, pt, ln)[2]
+    pt[0, 3] = kp.shape[0]  # tokens 48..63: the second split of 32
+    pt[1, 2] = -1
+    got = paged_split_ref(q, kp, vp, pt, ln, split_tokens=32)
+    assert bool(torch.isnan(got[0]).all() and torch.isnan(got[1]).all())
+    assert bool(torch.isnan(got[3]).all())  # 65 > 4 groups of 16
+    torch.testing.assert_close(got[2], want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("capture", [0, 5], ids=["eager", "graph-capture"])
+def test_decode_scratch_is_the_streams_or_the_captures(monkeypatch, capture):
+    """The decode kernels' scratch: one pair a (device, stream) and
+    capture (0: eager launches), reused while it is large enough and
+    replaced, grown to at least twice, when a call needs more; another
+    stream, another capture, or eager launches after a capture get a pair
+    of their own (zeroed counters), so no eager call can grow and free
+    memory a graph points into and no two graphs share scratch."""
+    monkeypatch.setattr(fd, "_SCRATCH", {})
+    dev = torch.device("cpu")
+    first = fd._scratch(dev, 7, capture, 100, 4)
+    again = fd._scratch(dev, 7, capture, 60, 3)
+    assert first[0].numel() >= 100 and first[1].numel() >= 4
+    assert first[0].dtype == torch.float32 and first[1].dtype == torch.int32
+    assert not first[1].any()
+    assert again[0] is first[0] and again[1] is first[1]
+    other = fd._scratch(dev, 8, capture, 10, 1)  # another stream
+    assert other[0] is not first[0] and other[1] is not first[1]
+    grown = fd._scratch(dev, 7, capture, 150, 4)
+    assert grown[0].numel() >= 200 and grown[1].numel() >= 8
+    assert fd._SCRATCH[(None, 7)] == (capture, *grown)
+    for switch in (capture + 1, 0 if capture else 9, capture):
+        pair = fd._scratch(dev, 7, switch, 60, 3)
+        assert pair[0] is not grown[0] and pair[1] is not grown[1]
+        assert not pair[1].any() and pair[0].numel() == 60
+        assert fd._SCRATCH[(None, 7)][0] == switch
+
+
+@pytest.mark.parametrize("H,KV,T,cap,D,esize,want", [
+    (16, 16, 16, 2048, 256, 2, 128),   # Gemma-7B's engine: 16 splits
+    (16, 16, 16, 4096, 256, 2, 256),   # the tune shape: 16 splits
+    (16, 16, 64, 4096, 256, 2, 256),   # groups of 64
+    (16, 16, 48, 4096, 128, 2, 288),   # lcm(48, the 32-token tile)
+    (24, 2, 16, 100, 64, 4, 32),       # two head tiles: 4 units, 66 splits
+    (256, 256, 16, 512, 128, 2, 512),  # a row fills the card: one split
+], ids=["gemma-engine", "tune", "t64", "t48", "gqa", "one-split"])
+def test_paged_auto_split_fills_the_card(H, KV, T, cap, D, esize, want):
+    """split_tokens None: each row's capacity cut into the most splits
+    that keep that row's blocks at BLOCKS_PER_SM blocks an SM of the
+    H100's 132 or fewer, rounded up to a multiple of T and of the tile;
+    the batch size is no input (the longest row sets the time)."""
+    got = pa.auto_split_tokens(H, KV, T, cap, D, esize, 132)
+    assert got == want
+    assert got % T == 0 and got % pa.tile_tokens(D, esize) == 0
+    units = KV * -(-(H // KV) // fd.head_tile(H, KV))
+    assert units * -(-cap // got) <= max(units, fd.BLOCKS_PER_SM * 132)
 
 
 def test_paged_decode_page_table_permutation_invariance():
@@ -172,13 +274,32 @@ def _good():
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad, match):
     """The CUDA launch path validates its inputs before any launch."""
     with pytest.raises((ValueError, TypeError), match=match):
-        _check(*bad(_good()), num_warps=4)
+        _check(*bad(_good()), split_tokens=None)
 
 
-def test_wrapper_rejects_bad_num_warps():
-    _check(*_good(), num_warps=4)
-    with pytest.raises(ValueError, match="num_warps"):
-        _check(*_good(), num_warps=3)
+@pytest.mark.parametrize("T,D,dtype,split_tokens,ok", [
+    (16, 16, torch.float32, None, True),     # the launcher's choice
+    (16, 16, torch.float32, 128, True),      # the 128-token tile
+    (16, 16, torch.float32, 384, True),
+    (16, 16, torch.float32, 0, False),
+    (16, 16, torch.float32, -128, False),
+    (16, 16, torch.float32, 64, False),      # not a multiple of the tile
+    (48, 256, torch.bfloat16, 48, True),     # 16-token tiles, 48-token groups
+    (48, 256, torch.bfloat16, 32, False),    # a tile but not a group
+])
+def test_wrapper_rejects_bad_split_tokens(T, D, dtype, split_tokens, ok):
+    """split_tokens must be a positive multiple of the group size and of
+    the kernel's tile (``tile_tokens``: 8 KB of rows, at most 128)."""
+    args = (torch.zeros(2, 4, D, dtype=dtype),
+            torch.zeros(5, T, 2, D, dtype=dtype),
+            torch.zeros(5, T, 2, D, dtype=dtype),
+            torch.ones(2, 2, dtype=torch.int32),
+            torch.ones(2, dtype=torch.int32))
+    if ok:
+        _check(*args, split_tokens=split_tokens)
+    else:
+        with pytest.raises(ValueError, match="split_tokens"):
+            _check(*args, split_tokens=split_tokens)
 
 
 @pytest.fixture
@@ -189,22 +310,29 @@ def tmp_cache(tmp_path, monkeypatch):
     autotune.reset_default_cache()
 
 
-def test_ops_resolves_explicit_over_default(tmp_cache):
+def test_ops_resolves_pages_per_block(tmp_cache):
+    """The paged space's one knob, pages_per_block, resolves explicit >
+    tuned > default; an entry tuned while the space had a num_warps knob
+    still resolves its pages_per_block, and the engine's lookup
+    (``ensure_tuned``) finds it."""
     dims = {"B": 2, "S": 64, "H": 4, "KV": 2, "D": 16}
     default = ops.DEFAULT_BLOCKS["paged_attention"]
+    assert default == {"pages_per_block": 4}
+    unset = {"pages_per_block": None}
     assert ops._resolve("paged_attention", dims, torch.float32, "cpu",
-                        {"num_warps": None}) == default
+                        unset) == default
     assert ops._resolve("paged_attention", dims, torch.float32, "cpu",
-                        {"num_warps": 8}) == dict(default, num_warps=8)
+                        {"pages_per_block": 8}) == {"pages_per_block": 8}
     autotune.default_cache().put("paged_attention",
                                  autotune.shape_sig(dims), "float32",
                                  "model-sm90",
                                  {"pages_per_block": 2, "num_warps": 4}, 1.0)
     assert ops._resolve("paged_attention", dims, torch.float32, "cpu",
-                        {"num_warps": None}) == {"pages_per_block": 2,
-                                                 "num_warps": 4}
+                        unset) == {"pages_per_block": 2}
     assert ops._resolve("paged_attention", dims, torch.float32, "cpu",
-                        {"num_warps": 8})["num_warps"] == 8
+                        {"pages_per_block": 8}) == {"pages_per_block": 8}
+    assert autotune.ensure_tuned("paged_attention", dims, "float32",
+                                 device="cpu")["pages_per_block"] == 2
 
 
 def _rand(rng, shape, dtype):
@@ -353,10 +481,10 @@ def test_smem_footprints():
     """The figures the C launchers report, by formula: the bf16 flash
     kernel's aligned Q tile, two K/V stages and barriers, the f32 flash
     kernel's f32 query tile, accumulator and row state plus padded K/V
-    tiles; the paged decode kernel's per-warp and merged softmax state;
-    the dense decode kernel's ring of four K/V tiles (8 KB of K at most,
-    128 entries at most), its f32 query and scores, four softmax floats a
-    head, four barriers and a flag."""
+    tiles; the dense decode kernel's ring of four K/V tiles (8 KB of K at
+    most, 128 entries at most), its f32 query and scores, four softmax
+    floats a head, four barriers and a flag, which the paged decode
+    kernel's block shares."""
     assert fa.smem_bytes(256, "bfloat16", 64, 32) == (
         1024 + 64 * 256 * 2 + 4 * 32 * 256 * 2 + 64)
     assert fa.smem_bytes(8, "float32", 16, 16) == (
@@ -366,6 +494,8 @@ def test_smem_footprints():
     assert fd.smem_bytes(24, 2, 64, "float32") == (
         128 + 4 * 2 * 32 * 256 + 8 * 64 * 4 + 8 * 32 * 4 + 8 * 16 + 32 + 8)
     assert rn.smem_bytes() == 0
+    for args in ((16, 16, 256, "bfloat16"), (24, 2, 64, "float32")):
+        assert pa.smem_bytes(*args) == fd.smem_bytes(*args)
 
 
 @pytest.mark.parametrize("B,S,H,KV,D,esize,want", [
