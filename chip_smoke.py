@@ -29,7 +29,13 @@ Phases (each failure exits non-zero):
               record's lengths (1 to 2048) and at phase 5's
               mid-generation lengths.
 4. parity   - a tiny f32 model served on the card and on the CPU from the
-              same weights: the greedy tokens must be equal.
+              same weights, under each serve knob (fifo, sjf, interleave,
+              on_demand on a pool that preempts, share_prefix with a
+              copy-on-write split, draft_len=3, temperature=0.8): tokens
+              and the counts of steps, prefill chunks, preemptions, CoW
+              splits, shared, drafted and accepted tokens must be equal;
+              the paged kernel runs n_layers times a single-token step
+              and never on a verify step.
 5. serve    - Gemma-7B at full width in bf16 (random weights from a seed,
               made on the card) serves 8 requests through the paged
               continuous engine; every decode step must launch the paged
@@ -46,6 +52,22 @@ Phases (each failure exits non-zero):
               that cache: the engine tunes its decode shapes on the card,
               adopts the paged winner's group size, and decodes through
               the tuned launch config.
+9. knobs    - (runs after phase 7, before phase 8, on phase 5's model)
+              Gemma-7B at full width in bf16 on phase 5's engine config
+              with one knob changed at a time: sjf; interleave at
+              prefill_chunk 128; on_demand on a pool that holds every
+              prompt but not every prompt + max_new (must preempt);
+              share_prefix on prompts with a 264-token common prefix
+              (must share, split a group copy-on-write and prefill fewer
+              chunks than unshared); draft_len=4; temperature=0.8 under
+              fifo and sjf (must sample the same tokens).  Each run must
+              leave the pool balanced and launch the paged kernel n_layers
+              times a single-token step (0 under drafts: every step is a
+              verify step, plain attention as in the reference).  Greedy
+              tokens are counted against the fifo/reserve baseline; a
+              divergence must sit at a top-2 logit gap within
+              DIVERGE_GAP_FACTOR times phase 5's logit error.  (Main path
+              of port slice 7.)
 8. zamba2   - Zamba2-1.2B at full width in bf16 (random weights from a
               seed), B=1, S=4096, under no-grad: ``Model.loss`` with
               gla_impl="pallas" and attn_impl="pallas" must launch the GLA
@@ -55,9 +77,10 @@ Phases (each failure exits non-zero):
               versions (gla_impl="jnp", attn_impl="blocked").  (Main path
               of port slice 3.)
 
-Launch counts are set to 0 just before each main path (phases 5, 6, 7 and
-8) and read just after.  The autotune cache of the whole run is a temporary
-file (REPRO_AUTOTUNE_CACHE); nothing is written to the user's cache.  The
+Launch counts are set to 0 just before each main path (phases 5, 6, 7, 8
+and each run of 9) and read just after.  The autotune cache of the whole
+run is a temporary file (REPRO_AUTOTUNE_CACHE); nothing is written to the
+user's cache.  The
 line before the last is the card line; the line before it the
 ``{"kernels": [...]}`` line; the last line ``{"ok": true, ...}``.
 """
@@ -135,6 +158,17 @@ ZAMBA_F32_REL_TOL = 1e-3
 # only by bf16 rounding in different kernel orderings; a wrong page, head
 # or length in the decode kernel decorrelates them far below this
 MIN_LOGIT_CORR = 0.99
+# phase 9: a knob's greedy token may differ from the fifo/reserve
+# baseline's only where rounding can flip the argmax.  Re-prefill after a
+# preemption, another prefill chunk and the verify attention compute the
+# same logits in other orders; for the argmax to flip where the
+# baseline's top-2 gap is g, the two runs' logits must differ by g/2 or
+# more at some token.  Phase 5 measures that difference between the
+# decode path and the prefill path (logit_consistency's max abs); the
+# bar is twice the flip condition, 4x it, for positions and requests
+# other than the one it was measured on.  A wrong page, length or mask
+# gives gaps far above it.
+DIVERGE_GAP_FACTOR = 4.0
 # the tune phase's budget per kernel (tests, each a warm-up and 3 timed
 # launches); the serve engine tunes its own shapes at its default budget
 TUNE_BUDGET = 8
@@ -1024,37 +1058,100 @@ TINY = ModelConfig(
 )
 
 
-def phase_parity():
-    rng = np.random.default_rng(SEED)
+# Phase 4's knob runs: (name, ServeConfig changes, workload).  Each knob
+# runs on a workload that makes it act: "mixed" (random prompts longer
+# than prefill_chunk=4, so interleave spreads their chunks), "heavy"
+# (long generations on a 4-page pool: on_demand preempts), "cow" (a
+# resident 32-token donor, an identical prompt and a 20-token prefix of
+# it: coverage ends mid-group, so sharing splits groups copy-on-write)
+PARITY_KNOBS = (
+    ("fifo", {}, "mixed"),
+    ("sjf", dict(schedule="sjf"), "mixed"),
+    ("interleave", dict(schedule="interleave"), "mixed"),
+    ("on_demand", dict(batch_slots=3, kv_cache_pages=4,
+                       page_policy="on_demand"), "heavy"),
+    ("share_prefix", dict(max_seq=64, share_prefix=True), "cow"),
+    ("draft_len=3", dict(draft_len=3), "mixed"),
+    ("temperature=0.8", dict(temperature=0.8, seed=7), "mixed"),
+)
+PARITY_COUNTS = ("steps", "prefill_chunks", "preemptions", "cow_splits",
+                 "shared_prefix_tokens", "drafted", "accepted")
+
+
+def parity_workloads(rng):
     lens, max_new = [5, 13, 3, 9], [6, 4, 8, 5]
-    prompts = [rng.integers(1, TINY.vocab_size, size=n).tolist()
-               for n in lens]
+    donor = rng.integers(1, TINY.vocab_size, size=32).tolist()
+    return {
+        "mixed": ([rng.integers(1, TINY.vocab_size, size=n).tolist()
+                   for n in lens], max_new),
+        "heavy": ([rng.integers(1, TINY.vocab_size, size=n).tolist()
+                   for n in (3, 4, 5, 4, 3, 6)], [14, 12, 16, 13, 18, 12]),
+        "cow": ([donor, [1, 2, 3], list(donor), donor[:20]],
+                [26, 2, 5, 4]),
+    }
+
+
+def phase_parity():
+    """Each knob's run on the card against the same run on the CPU (tiny
+    model, f32): equal tokens and counts; the paged kernel launched
+    n_layers times a single-token step, never on a verify step."""
+    workloads = parity_workloads(np.random.default_rng(SEED))
     params = Model(TINY, device="cpu").init(SEED)
-    scfg = ServeConfig(max_seq=64, batch_slots=2, kv_layout="paged",
-                       prefill_chunk=4)
-    outs = {}
-    before = pa.paged_flash_decode_cuda.launches
-    for label, dev in (("cpu", "cpu"), ("card", DEV)):
-        eng = ServeEngine(Model(TINY, device=dev), params, scfg, device=dev)
-        outs[label] = eng.generate(prompts, max_new)
-    launched = pa.paged_flash_decode_cuda.launches - before
-    check(outs["card"].tokens == outs["cpu"].tokens,
-          f"tokens differ: card {outs['card'].tokens} vs cpu "
-          f"{outs['cpu'].tokens}")
-    check(launched == TINY.n_layers * outs["card"].steps,
-          f"{launched} kernel launches for {outs['card'].steps} steps")
-    print(f"  tiny f32, 4 requests: tokens equal on card and cpu, "
-          f"{outs['card'].steps} steps, {launched} kernel launches")
+    base = dict(max_seq=32, batch_slots=2, kv_layout="paged",
+                prefill_chunk=4)
+    for name, knob, workload in PARITY_KNOBS:
+        scfg = ServeConfig(**dict(base, **knob))
+        outs = {}
+        for label, d in (("cpu", "cpu"), ("card", DEV)):
+            eng = ServeEngine(Model(TINY, device=d), params, scfg, device=d)
+            before = pa.paged_flash_decode_cuda.launches
+            outs[label] = eng.generate(*workloads[workload])
+            launched = pa.paged_flash_decode_cuda.launches - before
+            eng.last_alloc.check_balanced()
+        card, cpu = outs["card"], outs["cpu"]
+        check(card.tokens == cpu.tokens,
+              f"{name}: tokens differ: card {card.tokens} vs cpu "
+              f"{cpu.tokens}")
+        counts_ = {c: (getattr(card, c), getattr(cpu, c))
+                   for c in PARITY_COUNTS}
+        check(all(a == b for a, b in counts_.values()),
+              f"{name}: counts differ (card, cpu): {counts_}")
+        single = 0 if scfg.draft_len else card.steps
+        check(launched == TINY.n_layers * single,
+              f"{name}: {launched} kernel launches for {single} "
+              "single-token steps")
+        check(card.preemptions > 0 or knob.get("page_policy") is None,
+              f"{name}: the pool never ran dry")
+        check(card.cow_splits > 0 or not knob.get("share_prefix"),
+              f"{name}: no copy-on-write split")
+        print(f"  {name}: tokens and counts equal on card and cpu; "
+              + ", ".join(f"{c} {a}" for c, (a, _) in counts_.items())
+              + f"; {launched} kernel launches")
 
 
 # ---------------------------------------------------------------------------
 # phase 5: Gemma-7B at full width
 # ---------------------------------------------------------------------------
+def prefill_logits(model, params, seq):
+    """f32 logits over the true vocabulary after one chunked prefill of
+    ``seq`` into a fresh pool (dense attention): the prediction for the
+    token after ``seq``."""
+    T = 16
+    groups = -(-len(seq) // T)
+    row = torch.arange(1, groups + 1, dtype=torch.int32, device=DEV)
+    cache = model.init_paged_cache(groups + 1, T)
+    logits, _ = model.prefill_chunk_slot_paged(
+        params, {"tokens": torch.tensor([list(seq)], device=DEV)}, cache,
+        row, 0)
+    return logits[0, -1, :model.cfg.vocab_size].float()
+
+
 def logit_consistency(model, params, prompt, generated):
     """Final logits of request ``prompt + generated[:-1]`` two ways:
     prefill of the prompt then one decode step per generated token (the
     paged decode kernel), against one chunked prefill of the whole
-    sequence (dense attention).  Returns their Pearson correlation."""
+    sequence (dense attention).  Returns their Pearson correlation and
+    their largest absolute difference."""
     T = 16
     n = len(prompt) + len(generated)
     groups = -(-n // T)
@@ -1072,28 +1169,25 @@ def logit_consistency(model, params, prompt, generated):
             params, torch.tensor([[tok]], device=dev), cache,
             torch.tensor([length], dtype=torch.int32, device=dev), table)
         length += 1
-    cache = model.init_paged_cache(groups + 1, T)
-    seq = list(prompt) + list(generated[:-1])
-    pl, cache = model.prefill_chunk_slot_paged(
-        params, {"tokens": torch.tensor([seq], device=dev)}, cache, row, 0)
-    V = model.cfg.vocab_size
-    a = dl[0, -1, :V].float()
-    b = pl[0, -1, :V].float()
+    a = dl[0, -1, :model.cfg.vocab_size].float()
+    b = prefill_logits(model, params, list(prompt) + list(generated[:-1]))
     check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
           "full-width logits not finite")
-    return float(torch.corrcoef(torch.stack([a, b]))[0, 1])
+    return (float(torch.corrcoef(torch.stack([a, b]))[0, 1]),
+            float((a - b).abs().max()))
 
 
-def profile_decode_step(model, params, lengths, steps=5):
+def profile_decode_step(model, params, lengths, steps=5, columns=1):
     """Where one batched decode step's time goes, at the cell's shape:
     host wall time per step without the profiler, then device time per
     kernel under ``torch.profiler``; the idle share is the part of the
-    unprofiled step during which no kernel ran."""
+    unprofiled step during which no kernel ran.  ``columns`` > 1 profiles
+    a verify step of that many tokens a slot."""
     from torch.profiler import ProfilerActivity, profile
 
     T, maxg = 16, 2048 // 16
     B = len(lengths)
-    need = [-(-(n + 1) // T) for n in lengths]
+    need = [-(-(n + columns) // T) for n in lengths]
     table = torch.zeros((B, maxg), dtype=torch.int32)
     nxt = 1
     for b, n in enumerate(need):
@@ -1102,11 +1196,11 @@ def profile_decode_step(model, params, lengths, steps=5):
     cache = model.init_paged_cache(nxt, T)
     table = table.to(DEV)
     lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
-    feed = torch.ones((B, 1), dtype=torch.long, device=DEV)
+    feed = torch.ones((B, columns), dtype=torch.long, device=DEV)
 
     def step():
         logits, _ = model.decode_step_multi(params, feed, cache, lens, table)
-        return logits[:, -1].float().argmax(-1).cpu()
+        return logits.float().argmax(-1).cpu()
 
     for _ in range(3):
         step()
@@ -1136,7 +1230,9 @@ def profile_decode_step(model, params, lengths, steps=5):
                                                       "cutlass", "xmma"))
              else "other")
         groups[g] += ms
-    print(f"  decode step at lengths {lengths}: {wall_ms:.4f} ms wall "
+    what = "decode step" if columns == 1 else f"verify step ({columns} " \
+        "columns)"
+    print(f"  {what} at lengths {lengths}: {wall_ms:.4f} ms wall "
           f"(no profiler)")
     if not kernels:
         print("  device time per kernel: not measured (the profiler saw "
@@ -1181,7 +1277,8 @@ def phase_serve():
           f"(expected {cfg.n_layers} per step)")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     engine.last_alloc.check_balanced()
-    corr = logit_consistency(model, params, prompts[0], res.tokens[0])
+    corr, logit_err = logit_consistency(model, params, prompts[0],
+                                        res.tokens[0])
     check(corr >= MIN_LOGIT_CORR,
           f"decode-path vs prefill-path logit correlation {corr:.5f} < "
           f"{MIN_LOGIT_CORR}")
@@ -1195,10 +1292,10 @@ def phase_serve():
           f"{peak_gb:.2f} GB, p50 {res.p50_latency_s:.4f} s, "
           f"p95 {res.p95_latency_s:.4f} s")
     print(f"  decode-path vs prefill-path logit correlation {corr:.6f} "
-          f"(min {MIN_LOGIT_CORR})")
+          f"(min {MIN_LOGIT_CORR}), max abs difference {logit_err:.6f}")
     profile_decode_step(model, params, [int(n) + max_new // 2
                                         for n in plens])
-    return model, params, prompts, max_new, res, launches
+    return model, params, prompts, max_new, res, launches, logit_err
 
 
 def _leaves(tree):
@@ -1385,6 +1482,143 @@ def phase_autotune_serve(model, params, prompts, max_new, untuned):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the serve knobs on Gemma-7B at full width
+# ---------------------------------------------------------------------------
+def knob_workloads(prompts, max_new, vocab):
+    """Phase 9's runs: (name, ServeConfig changes, workload), and the
+    workloads {name: (prompts, max_new)}.  "phase5" is phase 5's 8
+    requests.  The on_demand pool holds every phase-5 prompt (+ the
+    scratch group) but not every prompt + max_new, so decode must grow
+    reservations and preempt.  "shared": 7 prompts of a common 264-token
+    prefix (16.5 groups) and distinct suffixes of 64 to 256 tokens, and
+    an 8th that repeats the 512-token one.  The registry matches whole
+    16-token groups of resident prompts, so the distinct suffixes share
+    256 tokens each and split nothing; the repeat matches all 32 groups
+    of its twin, is capped one token short (that token's logits seed its
+    first sample), so its first write lands mid-group and forces a
+    copy-on-write split.  At prefill_chunk 512 the 520-token prompt
+    takes 2 chunks unshared and 1 shared."""
+    rng = np.random.default_rng(SEED + 9)
+    common = rng.integers(1, vocab, size=256 + 8).tolist()
+    shared = [common + rng.integers(1, vocab, size=n).tolist()
+              for n in (64, 96, 128, 160, 192, 248, 256)]
+    shared.append(list(shared[5]))
+    pages = sum(-(-len(p) // 16) for p in prompts) + 1
+    worst = sum(-(-(len(p) + max_new) // 16) for p in prompts) + 1
+    check(pages < worst, f"on_demand pool of {pages} pages holds every "
+                         f"worst case ({worst})")
+    runs = (
+        ("sjf", dict(schedule="sjf"), "phase5"),
+        ("interleave", dict(schedule="interleave", prefill_chunk=128),
+         "phase5"),
+        ("on_demand", dict(page_policy="on_demand", kv_cache_pages=pages),
+         "phase5"),
+        ("unshared", {}, "shared"),
+        ("share_prefix", dict(share_prefix=True), "shared"),
+        ("draft_len=4", dict(draft_len=4), "phase5"),
+        ("temperature=0.8 fifo", dict(temperature=0.8), "phase5"),
+        ("temperature=0.8 sjf", dict(temperature=0.8, schedule="sjf"),
+         "phase5"),
+    )
+    return runs, {"phase5": (prompts, max_new), "shared": (shared, max_new)}
+
+
+def first_divergences(model, params, prompts, base, got):
+    """Requests whose tokens equal the baseline's, and for each other one
+    (request, position, the baseline's top-2 logit gap there): the gap
+    from a prefill of prompt + the baseline's tokens before it."""
+    same, diverged = 0, []
+    for i, (a, b) in enumerate(zip(base, got)):
+        if a == b:
+            same += 1
+            continue
+        j = next(k for k, (x, y) in enumerate(zip(a, b)) if x != y)
+        top2 = torch.topk(prefill_logits(model, params,
+                                         list(prompts[i]) + a[:j]), 2).values
+        diverged.append((i, j, float(top2[0] - top2[1])))
+    return same, diverged
+
+
+def phase_knobs(model, params, prompts, max_new, baseline, logit_err,
+                card):
+    """Each knob of the live co-tuner's space, one at a time, on phase 5's
+    engine config at full width: every run leaves the pool balanced and
+    launches the paged kernel n_layers times a single-token step (none on
+    a verify step); greedy tokens are compared with the fifo/reserve
+    baseline on the same prompts, and a divergence must sit at a top-2
+    logit gap within DIVERGE_GAP_FACTOR x phase 5's logit error."""
+    cfg = model.cfg
+    runs, workloads = knob_workloads(prompts, max_new, cfg.vocab_size)
+    bar = DIVERGE_GAP_FACTOR * logit_err
+    print(f"  {card}; divergence bar: top-2 gap <= {DIVERGE_GAP_FACTOR} x "
+          f"{logit_err:.6f} = {bar:.6f}")
+    results = {"fifo": baseline}
+    for name, knob, workload in runs:
+        engine = ServeEngine(model, params, ServeConfig(
+            max_seq=2048, batch_slots=8, kv_layout="paged", **knob),
+            device=DEV)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t = time.perf_counter()
+        res = engine.generate(*workloads[workload])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = pa.paged_flash_decode_cuda.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        engine.last_alloc.check_balanced()
+        results[name] = res
+        for toks in res.tokens:
+            check(len(toks) == max_new
+                  and all(0 <= t < cfg.vocab_size for t in toks),
+                  f"{name}: a malformed continuation")
+        single = 0 if engine.cfg.draft_len else res.steps
+        check(launches == cfg.n_layers * single,
+              f"{name}: {launches} paged launches for {single} "
+              "single-token decode steps")
+        host_s = wall - res.prefill_seconds - res.decode_seconds
+        print(f"  {name}: {res.steps} steps, {res.prefill_chunks} prefill "
+              f"chunks, {res.preemptions} preemptions, {res.cow_splits} CoW "
+              f"splits, {res.shared_prefix_tokens} shared tokens, drafted "
+              f"{res.drafted} accepted {res.accepted}; {launches} paged "
+              f"launches; decode {res.decode_tokens_per_sec:.2f} tok/s "
+              f"({res.decode_seconds / max(res.steps, 1) * 1e3:.4f} ms a "
+              f"step), prefill {res.prefill_seconds:.4f} s, host outside "
+              f"dispatches {host_s:.4f} s, p50 {res.p50_latency_s:.4f} s, p95 "
+              f"{res.p95_latency_s:.4f} s, peak {peak_gb:.2f} GB")
+        if knob.get("temperature"):
+            continue
+        base = results["unshared" if workload == "shared" else "fifo"]
+        if base is res:
+            continue
+        same, diverged = first_divergences(
+            model, params, workloads[workload][0], base.tokens, res.tokens)
+        print(f"    {same} of {len(res.tokens)} requests equal the "
+              f"{'unshared' if workload == 'shared' else 'fifo/reserve'} "
+              "baseline; first divergences (request, token, top-2 gap): "
+              + (", ".join(f"({i}, {j}, {g:.6f})" for i, j, g in diverged)
+                 or "none"))
+        for i, j, g in diverged:
+            check(g <= bar, f"{name}: request {i} diverges at token {j} "
+                            f"where the top-2 gap {g:.6f} > {bar:.6f}")
+    check(results["on_demand"].preemptions > 0,
+          "on_demand: the pool never ran dry")
+    sh, un = results["share_prefix"], results["unshared"]
+    check(sh.shared_prefix_tokens > 0 and sh.cow_splits > 0,
+          f"share_prefix: {sh.shared_prefix_tokens} shared tokens, "
+          f"{sh.cow_splits} CoW splits")
+    check(sh.prefill_chunks < un.prefill_chunks,
+          f"share_prefix: {sh.prefill_chunks} prefill chunks, unshared "
+          f"{un.prefill_chunks}")
+    check(results["temperature=0.8 fifo"].tokens
+          == results["temperature=0.8 sjf"].tokens,
+          "temperature: fifo and sjf sampled different tokens")
+    print("  temperature=0.8: fifo and sjf sampled the same tokens")
+    profile_decode_step(model, params, [len(p) + max_new // 2
+                                        for p in prompts], columns=5)
+
+
+# ---------------------------------------------------------------------------
 # phase 8: Zamba2-1.2B's forward and LM loss at full width
 # ---------------------------------------------------------------------------
 def profile_forward(fn):
@@ -1557,9 +1791,9 @@ def main() -> int:
     t_start = time.perf_counter()
 
     def phase(n, what):
-        print(f"[{n}/8] ({time.perf_counter() - t_start:.1f} s) {what}")
+        print(f"[{n}/9] ({time.perf_counter() - t_start:.1f} s) {what}")
 
-    print(f"[1/8] device: {name}; torch {torch.__version__}, "
+    print(f"[1/9] device: {name}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(tmp, "cache.json")
@@ -1599,7 +1833,8 @@ def main() -> int:
             phase(4, "port on the card against the port on the cpu")
             phase_parity()
             phase(5, "gemma-7b at full width (slice 1's main path)")
-            model, params, prompts, max_new, res, launches = phase_serve()
+            (model, params, prompts, max_new, res, launches,
+             logit_err) = phase_serve()
             records["paged_flash_decode"]["launches"] = launches
             phase(6, "launch.tune --tune-kernels at gemma-7b width "
                   "(slice 2's main path)")
@@ -1609,6 +1844,10 @@ def main() -> int:
             phase(7, "gemma-7b served with autotune_kernels on that "
                   "cache")
             phase_autotune_serve(model, params, prompts, max_new, res)
+            phase(9, "the serve knobs on gemma-7b at full width (slice "
+                  "7's main path; before phase 8, on phase 5's model)")
+            phase_knobs(model, params, prompts, max_new, res, logit_err,
+                        card)
             del model, params
             torch.cuda.empty_cache()
             phase(8, "zamba2-1.2b forward and loss at full width "

@@ -13,8 +13,8 @@ the roofline cost model's ``inf`` region, so
 
 holds exactly (``tests/test_torch_autotune.py``).  The reference's
 sublane-alignment warning is a Mosaic idea and has no counterpart here;
-the serve-knob models come with the ``--joint`` mode (ROADMAP queue 1,
-item 5).
+the serve-knob models come with the ``--joint`` mode (ROADMAP queue 1:
+co-tuning).
 """
 from __future__ import annotations
 

@@ -17,7 +17,7 @@ H100, ``model-sm90`` for the Hopper cost model (CPU-side work).  The
 reference writes ``cpu`` for its own cost model into the same file, so
 the two never overwrite each other's winners.  The reference's serve and train
 entries (``put_serve_config`` and the rest) come with ``--joint``
-(ROADMAP queue 1, item 5).
+(ROADMAP queue 1: co-tuning).
 """
 from __future__ import annotations
 

@@ -6,8 +6,8 @@ tuner ⇄ system-under-tune architecture.  Module for module, name for name
 and draw for draw it is the reference's code, so the same space, objective
 and seed give the same trial stream in both packages
 (``tests/test_torch_tuner.py``).  The reference's surrogates, composite
-spaces and the JAX system-under-tune are not ported yet (ROADMAP queue 1,
-items 5 and 9).
+spaces and the JAX system-under-tune are not ported yet (ROADMAP queue 1:
+co-tuning; dry-run and roofline).
 """
 from .base import BatchObjective, BudgetedRun, BudgetExhausted, Trial, \
     TuningResult

@@ -13,7 +13,8 @@ here are the methods the paper positions against:
 
 ``subspace_rr`` (BestConfig-style divide-and-diverge over a composite
 space's subspaces, ``repro.core.composite`` in the reference) is not
-ported yet: it comes with the ``--joint`` mode (ROADMAP queue 1, item 5).
+ported yet: it comes with the ``--joint`` mode (ROADMAP queue 1:
+co-tuning).
 
 All optimizers minimize, operate on the unit hypercube, and respect a strict
 test budget — the resource limit of the ACTS problem definition (§3).

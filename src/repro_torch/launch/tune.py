@@ -13,8 +13,9 @@ Counterpart of ``repro.launch.tune``.  The ported mode:
   kernel entry points (``repro_torch.kernels.ops``) and the serve engine
   (``ServeConfig.autotune_kernels``) read the winners back.
 
-``--joint`` (ROADMAP queue 1, item 5; ``--real`` also item 6), ``--probe``
-and the default dry-run mode (item 9) are not ported yet and raise.
+``--joint`` (ROADMAP queue 1: co-tuning; ``--real`` also the train
+step), ``--probe`` and the default dry-run mode (dry-run and roofline)
+are not ported yet and raise.
 
 Example:
   python -m repro_torch.launch.tune --arch gemma-7b --shape train_4k \\
@@ -77,24 +78,26 @@ def main(argv=None) -> int:
                     help="cuda (time each test on the card) or cpu (the "
                          "Hopper cost model)")
     ap.add_argument("--joint", action="store_true",
-                    help="not ported yet (ROADMAP queue 1, item 5)")
+                    help="not ported yet (ROADMAP queue 1: co-tuning)")
     ap.add_argument("--real", action="store_true",
-                    help="not ported yet (ROADMAP queue 1, items 5 and 6)")
+                    help="not ported yet (ROADMAP queue 1: co-tuning, "
+                         "the train step)")
     ap.add_argument("--probe", default=None,
-                    help="not ported yet (ROADMAP queue 1, item 9)")
+                    help="not ported yet (ROADMAP queue 1: dry-run and "
+                         "roofline)")
     args = ap.parse_args(argv)
     if args.joint or args.real:
         raise NotImplementedError(
-            "--joint co-tuning needs ROADMAP queue 1, item 5 (and --real "
-            "also item 6), which is not ported yet")
+            "--joint co-tuning needs ROADMAP queue 1: co-tuning (and --real "
+            "also the train step), which is not ported yet")
     if args.probe is not None:
         raise NotImplementedError(
-            "--probe needs the dry-run and roofline (ROADMAP queue 1, "
-            "item 9), which are not ported yet")
+            "--probe needs ROADMAP queue 1: dry-run and roofline, which "
+            "is not ported yet")
     if not args.tune_kernels:
         raise NotImplementedError(
-            "the default dry-run tuning mode needs ROADMAP queue 1, item 9, "
-            "which is not ported yet; pass --tune-kernels")
+            "the default dry-run tuning mode needs ROADMAP queue 1: dry-run "
+            "and roofline, which is not ported yet; pass --tune-kernels")
 
     from repro_torch import autotune
 

@@ -11,15 +11,17 @@ Counterpart of ``repro.models.attention`` on these paths:
 * the scalar-``cache_index`` cache path (chunked prefill): append the
   chunk's K/V into a dense cache view, then dense causal attention
   (``attend(impl="dense")``);
-* the paged single-token decode path: append each slot's token through
-  its page-table row, then the paged decode kernel
-  (``kernels.ops.paged_flash_decode``).
+* the paged decode path: append each slot's token through its
+  page-table row, then the paged decode kernel
+  (``kernels.ops.paged_flash_decode``); with C > 1 tokens a slot (the
+  speculative verify of n-gram drafts) append all C and attend with
+  ``_paged_verify_attend``, plain PyTorch as in the reference.
 
 Unlike the reference, whose arrays are immutable, the cache tensors are
 updated in place; the returned cache is the same dict.  The banded
 ``local`` implementation (sliding windows), the vector-``cache_index``
-dense layout, speculative verify and cross-attention are later slices and
-raise ``NotImplementedError``.  All softmax math runs in f32.
+dense layout and cross-attention are later slices and raise
+``NotImplementedError``.  All softmax math runs in f32.
 """
 from __future__ import annotations
 
@@ -181,7 +183,7 @@ def attend(q, k, v, *, cfg: ModelConfig, causal: bool = True,
     if impl == "local":
         raise NotImplementedError(
             "attention impl 'local' (banded sliding-window attention) is "
-            "not ported (ROADMAP queue 1, item 7)")
+            "not ported (ROADMAP queue 1: other model families)")
     if impl == "blocked":
         if window:  # blocked path is exact only without a window
             raise ValueError("blocked impl does not support sliding window")
@@ -223,12 +225,14 @@ def self_attention(
     given.
 
     Without a cache: full-sequence (forward / train) attention through
-    ``attend`` with ``cfg.attn_impl``; the cache returned is None.  With ``page_table`` the cache is a (groups, group_tokens, KV,
-    D) pool and ``cache_index`` a (B,) vector: every slot appends its
-    single token at its own position through its table row, then attends
-    with the paged decode kernel.  With an int ``cache_index`` the cache is a
-    dense (B, S, KV, D) buffer: the chunk lands at ``cache_index`` and
-    attends causally over the first ``cache_index + S`` positions.
+    ``attend`` with ``cfg.attn_impl``; the cache returned is None.  With
+    ``page_table`` the cache is a (groups, group_tokens, KV, D) pool and
+    ``cache_index`` a (B,) vector: every slot appends its token(s) at its
+    own position through its table row, then attends with the paged
+    decode kernel (one token) or ``_paged_verify_attend`` (C > 1).  With
+    an int ``cache_index`` the cache is a dense (B, S, KV, D) buffer: the
+    chunk lands at ``cache_index`` and attends causally over the first
+    ``cache_index + S`` positions.
     """
     q, k, v = _project_qkv(params, x, cfg)
     cos, sin = rope_freqs(positions, cfg.head_dim_, cfg.rope_theta)
@@ -239,24 +243,41 @@ def self_attention(
         y = attend(q, k, v, cfg=cfg)
     elif page_table is not None:
         ck, cv = cache["k"], cache["v"]
-        if k.shape[1] != 1:
-            raise NotImplementedError(
-                "multi-token paged append (speculative verify) is not "
-                "ported (ROADMAP queue 1, item 3)")
-        B = x.shape[0]
+        B, S_new = k.shape[:2]
         T = ck.shape[1]
+        rows = torch.arange(B, device=x.device)
         pos = torch.as_tensor(cache_index, device=x.device).long()
-        gid = page_table[torch.arange(B, device=x.device), pos // T].long()
-        off = pos % T
-        ck[gid, off] = k[:, 0].to(ck.dtype)
-        cv[gid, off] = v[:, 0].to(cv.dtype)
-        y = _paged_decode_attend(q, ck, cv, page_table,
-                                 (pos + 1).to(torch.int32))
+        if S_new == 1:
+            gid = page_table[rows, pos // T].long()
+            off = pos % T
+            ck[gid, off] = k[:, 0].to(ck.dtype)
+            cv[gid, off] = v[:, 0].to(cv.dtype)
+            y = _paged_decode_attend(q, ck, cv, page_table,
+                                     (pos + 1).to(torch.int32))
+        else:
+            # Speculative verify: C tokens a slot at pos..pos+C-1.  The
+            # reference routes columns past the page table (a draft chain
+            # overrunning max_seq on a request that finishes first) out of
+            # range and drops them in the scatter; indexed assignment
+            # would raise there, so they are masked out of the write.
+            # Columns past a slot's reservation land in the scratch
+            # entries of its row.  Either way no accepted column reads
+            # them.
+            MAXG = page_table.shape[1]
+            ppos = pos[:, None] + torch.arange(S_new, device=x.device)
+            lg = ppos // T
+            keep = lg < MAXG
+            gid = page_table[rows[:, None], lg.clamp(max=MAXG - 1)].long()
+            off = ppos % T
+            ck[gid[keep], off[keep]] = k[keep].to(ck.dtype)
+            cv[gid[keep], off[keep]] = v[keep].to(cv.dtype)
+            y = _paged_verify_attend(q, ck, cv, page_table, pos)
     else:
         if not isinstance(cache_index, int):
             raise NotImplementedError(
                 "per-slot cache_index on a dense cache (the dense "
-                "continuous layout) is not ported (ROADMAP queue 1, item 3)")
+                "continuous layout) is not ported (ROADMAP queue 1: dense "
+                "layout and wave runtime)")
         ck, cv = cache["k"], cache["v"]
         S_new = k.shape[1]
         ck[:, cache_index:cache_index + S_new] = k.to(ck.dtype)
@@ -277,3 +298,27 @@ def _paged_decode_attend(q, k_pages, v_pages, page_table, lengths):
     out = ops.paged_flash_decode(q[:, 0].contiguous(), k_pages, v_pages,
                                  page_table, lengths)
     return out[:, None].to(v_pages.dtype)
+
+
+def _paged_verify_attend(q, k_pages, v_pages, page_table, base):
+    """Multi-token decode attention over a paged pool (speculative
+    verify), plain PyTorch on every device as in the reference: gather
+    the pool into logical order through the whole page-table row, in
+    f32, then masked attention where column i (absolute position
+    ``base + i``) sees key positions up to ``base + i``.  Scratch-group
+    and rejected-tail writes are masked out like stale pool tokens, so
+    the accepted prefix attends exactly the KV a draft-free run would."""
+    B, C, H, D = q.shape
+    KV = k_pages.shape[2]
+    table = page_table.long()
+    k = k_pages[table].reshape(B, -1, KV, D).float()
+    v = v_pages[table].reshape(B, -1, KV, D).float()
+    qg = q.reshape(B, C, KV, H // KV, D).float() / math.sqrt(D)
+    s = torch.einsum("bckgd,bskd->bkgcs", qg, k)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    qpos = base.long()[:, None] + torch.arange(C, device=q.device)[None]
+    mask = kpos[None, None, :] <= qpos[:, :, None]  # (B, C, S)
+    s = s.masked_fill(~mask[:, None, None], NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgcs,bskd->bckgd", w, v)
+    return out.reshape(B, C, H, D).to(v_pages.dtype)

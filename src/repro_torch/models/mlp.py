@@ -21,7 +21,7 @@ def mlp_defs(cfg: ModelConfig):
     if cfg.activation not in ("swiglu", "geglu", "gelu"):
         raise NotImplementedError(
             f"activation {cfg.activation!r}: only swiglu, geglu and gelu "
-            "are ported (ROADMAP queue 1, item 7)")
+            "are ported (ROADMAP queue 1: other model families)")
     d, ff = cfg.d_model, cfg.d_ff
     if cfg.activation == "gelu":  # non-gated
         return {"wi": ((d, ff), fan_in_init(0)),

@@ -71,8 +71,8 @@ def _stack_forward(blocks_params: List[Dict[str, Any]], x: torch.Tensor,
                    remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
     if remat != "none":
         raise NotImplementedError(
-            f"remat={remat!r}: rematerialization comes with the train step "
-            "(ROADMAP queue 1, item 6)")
+            f"remat={remat!r}: rematerialization is not ported (ROADMAP "
+            "queue 1: the train step)")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     n = len(cfg.superblock)
     for i, p in enumerate(blocks_params):
@@ -115,10 +115,11 @@ class Model:
         if any(kind not in KINDS for kind in cfg.superblock):
             raise NotImplementedError(
                 f"superblock {cfg.superblock}: only {KINDS} blocks are "
-                "ported (ROADMAP queue 1, item 7)")
+                "ported (ROADMAP queue 1: other model families)")
         if not cfg.tie_embeddings:
             raise NotImplementedError(
-                "untied embeddings are not ported (ROADMAP queue 1, item 7)")
+                "untied embeddings are not ported (ROADMAP queue 1: other "
+                "model families)")
         self.cfg = cfg
         self.device = resolve_device(device)
         # fail at construction on a config the MLP cannot run
@@ -237,7 +238,8 @@ class Model:
         if any(kind != "attn" for kind in self.cfg.superblock):
             raise NotImplementedError(
                 f"serving superblock {self.cfg.superblock}: the serve paths "
-                "run 'attn' stacks only (ROADMAP queue 1, item 7)")
+                "run 'attn' stacks only (ROADMAP queue 1: other model "
+                "families)")
 
     # --- chunked prefill --------------------------------------------------
     def prefill_chunk(self, params, batch, cache):
@@ -279,21 +281,22 @@ class Model:
 
     def decode_step_multi(self, params, tokens, cache, lengths,
                           page_table):
-        """Continuous-batching decode: one token per slot, each slot at its
-        OWN cache length, through the paged pools.
+        """Continuous-batching decode: C token(s) per slot, each slot at
+        its OWN cache length, through the paged pools.
 
-        ``tokens``: (B, 1); ``lengths``: (B,) int32 tokens already resident
-        per slot; ``page_table``: (B, MAXG) int32.  Idle slots are decoded
-        too (their page rows point at the scratch group and the engine
-        discards their outputs).  Returns (logits (B, 1, V_pad), cache).
+        ``tokens``: (B, C); ``lengths``: (B,) int32 tokens already
+        resident per slot; ``page_table``: (B, MAXG) int32.  C == 1 is the
+        ordinary decode step (the paged decode kernel); C > 1 is the
+        speculative-verify dispatch: column i of slot b sits at position
+        ``lengths[b] + i`` and the causal per-slot masks make each
+        column's logits what C successive single-token steps would give.
+        Idle slots are decoded too (their page rows point at the scratch
+        group and the engine discards their outputs).  Returns (logits
+        (B, C, V_pad), cache).
         """
         self._serve_guard()
         cfg = self.cfg
         C = tokens.shape[1]
-        if C != 1:
-            raise NotImplementedError(
-                "multi-column decode (speculative verify) is not ported "
-                "(ROADMAP queue 1, item 3)")
         x = self._embed(params, tokens)
         ctx = {"positions": lengths.long()[:, None]
                + torch.arange(C, device=x.device)[None],

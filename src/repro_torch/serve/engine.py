@@ -1,21 +1,39 @@
 """Serving engine: continuous-batching runtime over a paged KV cache.
 
-Counterpart of ``repro.serve.engine`` for the configuration the live
-system under tune runs (``kv_layout="paged"``, ``schedule="fifo"``,
-``page_policy="reserve"``, greedy decoding): a slot scheduler admits
-requests into decode slots as they free up, each admission reserves its
-worst-case page groups and prefills its prompt through the exact chunked
-path, and decode is one batched dispatch per step at per-slot cache
-lengths, whose attention is the paged decode kernel.  With
-``autotune_kernels`` the engine tunes (or loads from the autotune cache)
-the launch configs of its kernel shapes on its own device and adopts the
-paged kernel's tuned ``pages_per_block`` as the pool's group size.
+Counterpart of ``repro.serve.engine`` on the paged continuous runtime
+(``kv_layout="paged"``), the configuration the live system under tune
+runs: a slot scheduler admits requests into decode slots as they free
+up, each admission reserves page groups and prefills its prompt through
+the exact chunked path, and decode is one batched dispatch per step at
+per-slot cache lengths, whose attention is the paged decode kernel.  The
+knobs ``serve_knob_space`` sweeps all act here:
+
+* ``schedule``: ``fifo``, ``sjf`` (shortest prompt first, with a bounded
+  bypass of a head whose reservation does not fit) or ``interleave``
+  (prefill one chunk a slot between decode steps);
+* ``page_policy``: ``reserve`` (worst-case reservations) or
+  ``on_demand`` (prompt-size reservations grown as decode crosses group
+  boundaries; on exhaustion the cheapest-recompute request is preempted
+  and re-prefilled later);
+* ``share_prefix``: admission maps registry-matched prompt-prefix groups
+  copy-on-write instead of prefilling them;
+* ``draft_len``: n-gram drafts from a request's own history ride extra
+  columns of the decode dispatch (a verify step, plain PyTorch attention
+  as in the reference) and the prefix that matches what single-token
+  decode would sample is accepted;
+* ``temperature``: sampling keyed on (seed, request id, token index).
+
+None of them changes a greedy token.  With ``autotune_kernels`` the
+engine tunes (or loads from the autotune cache) the launch configs of its
+kernel shapes on its own device and adopts the paged kernel's tuned
+``pages_per_block`` as the pool's group size.
 
 ``ServeConfig`` keeps every field and default of the reference so configs
-carry over; a knob whose path is not ported yet raises
-``NotImplementedError`` naming its ROADMAP item when the engine is built
-(it is never silently ignored).  The engine runs on ``device``; the
-default ``"cuda"`` raises without a card.
+carry over; a knob whose path is not ported yet (the dense layout, the
+wave runtime, online retuning, meshes) raises ``NotImplementedError``
+naming its ROADMAP item when the engine is built (it is never silently
+ignored).  The engine runs on ``device``; the default ``"cuda"`` raises
+without a card.
 """
 from __future__ import annotations
 
@@ -32,7 +50,7 @@ from repro_torch.models import Model
 from repro_torch.models.common import resolve_device
 
 from .paging import (PAGE_TOKENS, OversubscriptionError, PageAllocator,
-                     min_pages_for)
+                     PrefixIndex, min_pages_for)
 from .scheduler import PAGE_POLICIES, SCHEDULES, Request, SlotScheduler
 
 __all__ = ["ServeConfig", "ServeEngine", "GenerationResult",
@@ -42,11 +60,32 @@ RUNTIMES = ("continuous", "wave")
 KV_LAYOUTS = ("dense", "paged")
 
 
+def _tail_history(prompt: Sequence[int], out: List[int],
+                  window: int) -> List[int]:
+    """The trailing ``window`` tokens of prompt + generated, without
+    building the whole concatenation (``window <= 0``: all of it)."""
+    if window <= 0:
+        return list(prompt) + out
+    if window <= len(out):
+        return out[-window:]
+    head = list(prompt[-(window - len(out)):]) if len(prompt) else []
+    return head + out
+
+
+def _token_seed(key: Tuple[int, ...]) -> int:
+    """The 64-bit generator seed of one sampled token, from its key
+    (seed, request id, token index): a hash (numpy's ``SeedSequence``),
+    so nearby keys give unrelated streams."""
+    lo, hi = np.random.SeedSequence(
+        [k & 0xFFFF_FFFF_FFFF_FFFF for k in key]).generate_state(2)
+    return int(lo) | int(hi) << 32
+
+
 @dataclass
 class ServeConfig:
     """The reference's serve config, field for field (see
     ``repro.serve.engine.ServeConfig`` for what each knob does).  Only
-    the knobs this slice runs are range-checked here; the engine rejects
+    the knobs the port runs are range-checked here; the engine rejects
     the others while their paths are not ported (``_UNPORTED``)."""
 
     max_seq: int = 2048
@@ -100,6 +139,12 @@ class ServeConfig:
             raise ValueError("prefill_chunk must be >= 1")
         if self.kv_page_block < 1:
             raise ValueError("kv_page_block must be >= 1")
+        if self.draft_len < 0:
+            raise ValueError("draft_len must be >= 0")
+        if self.draft_window < 2:
+            raise ValueError("draft_window must be >= 2 (an n-gram draft "
+                             "needs at least a 1-token suffix + 1 earlier "
+                             "token to match against)")
         if self.slot_cap is not None and not (
                 1 <= self.slot_cap <= self.batch_slots):
             raise ValueError(f"slot_cap must be in [1, batch_slots="
@@ -134,27 +179,18 @@ class ServeConfig:
                     f"{capacity}")
 
 
-# (knob, predicate that means "set to a value this slice does not run",
-#  where the port of that path is tracked)
+# (knob, predicate that means "set to a value the port does not run",
+#  the ROADMAP queue-1 item that ports that path, by its title)
 _UNPORTED = (
     ("runtime", lambda c: c.runtime != "continuous",
-     "the wave runtime (ROADMAP queue 1, item 3)"),
+     "the wave runtime (ROADMAP queue 1: dense layout and wave runtime)"),
     ("kv_layout", lambda c: c.kv_layout != "paged",
-     "the dense KV layout (ROADMAP queue 1, item 3)"),
-    ("temperature", lambda c: c.temperature > 0,
-     "temperature sampling (ROADMAP queue 1, item 3)"),
-    ("schedule", lambda c: c.schedule != "fifo",
-     "the sjf and interleave schedules (ROADMAP queue 1, item 3)"),
-    ("page_policy", lambda c: c.page_policy != "reserve",
-     "the on_demand page policy and preemption (ROADMAP queue 1, item 3)"),
-    ("share_prefix", lambda c: c.share_prefix,
-     "prefix sharing (ROADMAP queue 1, item 3)"),
-    ("draft_len", lambda c: c.draft_len != 0,
-     "n-gram drafts with a verify pass (ROADMAP queue 1, item 3)"),
+     "the dense KV layout (ROADMAP queue 1: dense layout and wave "
+     "runtime)"),
     ("retune", lambda c: c.retune,
-     "online retuning (ROADMAP queue 1, item 5)"),
+     "online retuning (ROADMAP queue 1: co-tuning)"),
     ("mesh_shape", lambda c: c.mesh_shape is not None,
-     "multi-device serving (ROADMAP queue 1, item 8)"),
+     "multi-device serving (ROADMAP queue 1: multi-device)"),
 )
 
 
@@ -175,9 +211,27 @@ class GenerationResult:
     prefill_chunks: int = 0  # prefill dispatches actually issued
     # per-request provenance (rid order == input order):
     # {"rid", "prompt_len", "new_tokens", "latency_s", "ttft_s",
-    #  "preemptions"}
+    #  "preemptions", "shared_tokens"}
     per_request: List[Dict[str, Any]] = field(default_factory=list)
-    preemptions: int = 0  # always 0 under the reserve policy
+    # recompute preemptions issued (on_demand page policy only)
+    preemptions: int = 0
+    # prompt tokens admitted straight from shared resident groups (their
+    # prefill skipped), copy-on-write group splits, draft tokens proposed
+    # to verification, and draft tokens accepted (beyond the first token
+    # of every dispatch)
+    shared_prefix_tokens: int = 0
+    cow_splits: int = 0
+    drafted: int = 0
+    accepted: int = 0
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of proposed draft tokens accepted; ``nan`` when
+        nothing was drafted ("no speculation ran" is not "every draft was
+        rejected")."""
+        if self.drafted == 0:
+            return float("nan")
+        return self.accepted / self.drafted
 
     @property
     def decode_tokens_per_sec(self) -> float:
@@ -306,9 +360,92 @@ class ServeEngine:
     # ------------------------------------------------------------------
     # continuous-batching runtime
     # ------------------------------------------------------------------
-    def _greedy_rows(self, logits: torch.Tensor) -> torch.Tensor:
-        lg = logits[:, -1, :self.model.cfg.vocab_size].float()
-        return lg.argmax(dim=-1)
+    def _greedy_grid(self, logits: torch.Tensor) -> torch.Tensor:
+        """Greedy over a (B, C, V) dispatch grid -> (B, C) tokens (C == 1
+        is the single-token step)."""
+        return logits[..., :self.model.cfg.vocab_size].float().argmax(-1)
+
+    # Temperature sampling.  Token ``i`` of request ``rid`` is drawn by the
+    # Gumbel-max trick, argmax(logits + temperature * g), with standard
+    # Gumbel noise g from a CPU ``torch.Generator`` seeded by the key
+    # ``_base_key(rid) + (i,)`` (``_token_seed``), the port's counterpart
+    # of the reference's ``fold_in(fold_in(PRNGKey(seed), rid), i)``.  The
+    # noise is made on the CPU in f64 and rounded once to f32, and the
+    # only arithmetic on the logits' device is one f32 add and an argmax,
+    # so a sampled token depends on the logits and the key alone, on
+    # either device: never on the schedule, the slot, a preemption,
+    # sharing or the draft length, and never on global RNG state.  Torch
+    # cannot reproduce ``jax.random``'s bits, so the tokens are not the
+    # reference's.
+    def _base_key(self, rid: int) -> Tuple[int, int]:
+        """Per-request key root: (seed, request id)."""
+        return (self.cfg.seed, rid)
+
+    def _noise(self, keys: Sequence[Optional[Tuple[int, ...]]]
+               ) -> torch.Tensor:
+        """``temperature`` times Gumbel noise, one f32 row of the true
+        vocabulary a key (zeros for a None key: an idle row), on the
+        CPU."""
+        V = self.model.cfg.vocab_size
+        noise = torch.zeros((len(keys), V))
+        gen = torch.Generator()
+        for i, key in enumerate(keys):
+            if key is not None:
+                gen.manual_seed(_token_seed(key))
+                u = torch.rand(V, generator=gen, dtype=torch.float64)
+                noise[i] = -self.cfg.temperature * torch.log(-torch.log(u))
+        return noise
+
+    def _categorical_grid(self, logits: torch.Tensor,
+                          base_keys: Sequence[Optional[Tuple[int, int]]],
+                          produced: Sequence[int]) -> torch.Tensor:
+        """Temperature sampling over a (B, C, V) dispatch grid: column i
+        of slot b keys on ``base_keys[b] + (produced[b] + i,)``, the key
+        single-token decode would use i steps later, which makes draft
+        acceptance token-exact."""
+        B, C = logits.shape[:2]
+        lg = logits[..., :self.model.cfg.vocab_size].float()
+        keys = [None if k is None else k + (p + i,)
+                for k, p in zip(base_keys, produced) for i in range(C)]
+        noise = self._noise(keys).to(lg.device).reshape(B, C, -1)
+        return (lg + noise).argmax(-1)
+
+    def _sample_slot(self, logits: torch.Tensor, rid: int,
+                     produced: int) -> int:
+        """ONE request's next token from (1, S, V) logits, keyed on
+        (rid, produced) like the batched path."""
+        if self.cfg.temperature <= 0:
+            return int(self._greedy_grid(logits[:, -1:])[0, 0])
+        return int(self._categorical_grid(
+            logits[:, -1:], [self._base_key(rid)], [produced])[0, 0])
+
+    def _copy_group_blocks(self, cache, src: int, dst: int) -> None:
+        """Device copy of one physical pool group (the CoW split): pool
+        row ``src`` into ``dst`` in every layer's K and V, in place.  The
+        pools keep their storage: the paged kernel caches TMA tensor maps
+        keyed on each pool's address."""
+        for layer in cache["blocks"]:
+            for pool in layer.values():
+                pool[dst].copy_(pool[src])
+
+    @staticmethod
+    def _ngram_draft(history: List[int], k: int, max_n: int = 3,
+                     window: int = 0) -> List[int]:
+        """Self-drafted continuation: the most recent earlier occurrence of
+        the longest (<= max_n) suffix of ``history`` and the <= k tokens
+        that followed it.  A wrong draft costs verify columns, never
+        tokens.  ``window`` bounds the lookback (0: unbounded)."""
+        if window and len(history) > window:
+            history = history[-window:]
+        L = len(history)
+        if k <= 0 or L < 2:
+            return []
+        for n in range(min(max_n, L - 1), 0, -1):
+            suffix = history[L - n:]
+            for s in range(L - n - 1, -1, -1):
+                if history[s:s + n] == suffix:
+                    return history[s + n:s + n + k]
+        return []
 
     def _init_continuous_cache(self):
         """Slot KV state: the paged pools."""
@@ -328,6 +465,11 @@ class ServeEngine:
         alloc = PageAllocator(self.pool_groups * self.group_pages,
                               PAGE_TOKENS, self.group_pages)
         page_tables = np.zeros((B, self.max_groups), np.int32)
+        prefix = PrefixIndex(alloc) if cfg.share_prefix else None
+        # on_demand reservations need the decode extend path until they
+        # drain (the reference latches this; only its retuner, not
+        # ported, switches the policy mid-run)
+        ever_on_demand = sched.on_demand
         cache = self._init_continuous_cache()
         # admission cap: only slots below it admit
         slot_cap = min(cfg.slot_cap or B, B)
@@ -341,9 +483,11 @@ class ServeEngine:
 
         results: List[Optional[List[int]]] = [None] * len(prompts)
         per_request: List[Optional[Dict[str, Any]]] = [None] * len(prompts)
-        first_tok_t: Dict[int, float] = {}  # rid -> first-token time
+        first_tok_t: Dict[int, float] = {}  # rid -> first-ever-token time
+        shared_by_rid: Dict[int, int] = {}  # rid -> shared-admitted tokens
         prefill_s = decode_s = 0.0
-        steps = chunks_issued = 0
+        steps = chunks_issued = preemptions = 0
+        shared_total = cow_splits = drafted = accepted = 0
         t0 = time.time()
 
         def run_chunk(b: int) -> None:
@@ -358,7 +502,13 @@ class ServeEngine:
             lengths[b] += piece_tokens.shape[1]
             chunks_issued += 1
             if not slot_chunks[b]:  # prefill done: sample the next token
-                tok = int(self._greedy_rows(logits)[0])
+                # publish this prompt's full-chunk groups for sharers
+                if prefix is not None:
+                    prefix.register(list(r.prompt),
+                                    [int(g) for g in page_tables[b]])
+                # token index = tokens carried from before a preemption
+                # (0 for fresh requests): the (rid, index) key continues
+                tok = self._sample_slot(logits, r.rid, len(slot_out[b]))
                 prefill_s += time.time() - t
                 first_tok_t.setdefault(r.rid, time.time())
                 accept_token(b, tok)
@@ -392,27 +542,161 @@ class ServeEngine:
                 "new_tokens": len(slot_out[b]),
                 "latency_s": now - t0,
                 "ttft_s": first_tok_t.get(r.rid, now) - t0,
-                "preemptions": 0,
+                "preemptions": r.preemptions,
+                "shared_tokens": shared_by_rid.get(r.rid, 0),
             }
             alloc.release(r.rid)
             clear_slot(b)
 
-        def next_admission():
-            """(request, groups) for the head request when its worst-case
-            reservation fits the pool, else None (fifo is strict)."""
-            head = sched.peek()
-            groups = alloc.try_alloc(head.rid, head.total_tokens)
-            if groups is None:
+        def preempt_slot(b: int) -> None:
+            """Recompute preemption: keep the victim's generated tokens in
+            its request, release its groups and re-queue it at the head;
+            readmission re-prefills prompt + generated and continues at
+            the same (rid, token-index) keys."""
+            nonlocal preemptions
+            r = slot_req[b]
+            r.generated = list(slot_out[b])
+            r.preemptions += 1
+            preemptions += 1
+            alloc.release(r.rid)
+            clear_slot(b)
+            sched.resubmit(r)
+
+        def admit_tokens(r: Request) -> int:
+            """The admission reservation: worst-case prompt + max_new
+            under ``reserve``, the prefill footprint under ``on_demand``."""
+            return r.resident_tokens if sched.on_demand else r.total_tokens
+
+        def shared_match(r: Request):
+            """``(gids, covered, cow)`` the registry offers ``r``: live
+            groups whose registered chunks cover a prefix of its prompt
+            (+ carried tokens), capped one token short of the whole so at
+            least one token runs through prefill (its logits seed
+            sampling); ``cow`` when the first write lands inside the last
+            shared group, which must then be split."""
+            if prefix is None:
+                return [], 0, False
+            toks = list(r.prompt) + list(r.generated)
+            gids, covered = prefix.match(toks)
+            covered = min(covered, len(toks) - 1)
+            keep = -(-covered // self.group_tokens)
+            return gids[:keep], covered, bool(covered % self.group_tokens)
+
+        def try_admit(r: Request):
+            """Secure ``r``'s reservation: refs on matched shared groups,
+            private groups for the rest, and a CoW split (allocator swap +
+            device group copy) of the boundary group the suffix writes
+            into.  Returns ``(groups, covered)`` or None when the pool
+            cannot host ``r`` yet."""
+            nonlocal cow_splits
+            gids, covered, cow = shared_match(r)
+            if not gids:
+                groups = alloc.try_alloc(r.rid, admit_tokens(r))
+                return None if groups is None else (groups, 0)
+            alloc.share(r.rid, gids)
+            if alloc.extend(r.rid, admit_tokens(r)) is None:
+                alloc.release(r.rid)  # undo: the shared refs must not leak
                 return None
-            sched.pop()
-            return head, groups
+            if cow:
+                new = alloc.cow_split(r.rid, len(gids) - 1)
+                if new is None:
+                    alloc.release(r.rid)
+                    return None
+                # the split group's resident tokens must read the same
+                # through the new mapping: copy the physical bytes
+                self._copy_group_blocks(cache, gids[-1], new)
+                cow_splits += 1
+            return alloc.owned_groups(r.rid), covered
+
+        def fits_shared(r: Request) -> bool:
+            """``try_admit``'s free-space arithmetic exactly (the sjf
+            bypass scan must never disagree with admission)."""
+            gids, covered, cow = shared_match(r)
+            need = (alloc.groups_for(admit_tokens(r)) - len(gids)
+                    + (1 if cow else 0))
+            return need <= alloc.free_groups
+
+        def next_admission():
+            """(request, groups, covered) for the next admissible request,
+            else None: head first in policy order; under ``sjf`` a bounded
+            bypass admits the first fitting pending request when the
+            head's reservation does not fit; fifo and interleave stay
+            strictly in order."""
+            head = sched.peek()
+            got = try_admit(head)
+            if got is not None:
+                sched.pop()
+                return head, got[0], got[1]
+            if cfg.schedule != "sjf":
+                return None
+            cand = sched.pop_first_fit(fits_shared)
+            if cand is None:
+                return None
+            got = try_admit(cand)
+            if got is None:  # admitting with a stale table corrupts KV
+                raise RuntimeError("pop_first_fit and try_admit disagree")
+            return cand, got[0], got[1]
+
+        def extend_slot(b: int, want: Optional[int] = None) -> None:
+            """Grow slot ``b``'s reservation to cover the next decode write
+            (``want`` tokens under speculation: every column that could be
+            accepted must land in reserved groups, not scratch); on pool
+            exhaustion preempt the cheapest-recompute victim (resident
+            tokens minus the shared-prefix tokens other owners keep
+            alive, ties youngest) and retry.  ``b`` itself may be the
+            victim; the caller drops it from the dispatch."""
+            r = slot_req[b]
+            target = int(lengths[b]) + 1 if want is None else want
+            while True:
+                new = alloc.extend(r.rid, target)
+                if new is not None:
+                    if new:
+                        grown = alloc.owned_groups(r.rid)
+                        page_tables[b, :len(grown)] = grown
+                    return
+                occupied = [bb for bb in range(B)
+                            if slot_req[bb] is not None]
+                by_rid = {slot_req[bb].rid: bb for bb in occupied}
+
+                def recompute_cost(rr: Request) -> int:
+                    return max(0, int(lengths[by_rid[rr.rid]])
+                               - alloc.shared_prefix_tokens(rr.rid))
+
+                victim = SlotScheduler.select_victim(
+                    [slot_req[bb] for bb in occupied], cost=recompute_cost)
+                vb = by_rid[victim.rid]
+                preempt_slot(vb)
+                if vb == b:
+                    return
+
+        def dispatch(feed: np.ndarray, active: List[int]) -> np.ndarray:
+            """One batched decode dispatch of ``feed`` (B, C) -> sampled
+            tokens (B, C) on the host: C == 1 runs the paged decode
+            kernel, C > 1 the verify attention."""
+            nonlocal cache, decode_s, steps
+            t = time.time()
+            logits, cache = self.model.decode_step_multi(
+                self.params, torch.as_tensor(feed, device=dev), cache,
+                torch.as_tensor(lengths, dtype=torch.int32, device=dev),
+                torch.as_tensor(page_tables, device=dev))
+            if cfg.temperature <= 0:
+                toks = self._greedy_grid(logits)
+            else:
+                toks = self._categorical_grid(
+                    logits,
+                    [self._base_key(slot_req[b].rid) if b in active
+                     else None for b in range(B)],
+                    [len(slot_out[b]) for b in range(B)])
+            toks = toks.cpu().numpy()
+            decode_s += time.time() - t
+            steps += 1
+            return toks
 
         def loop() -> None:
-            nonlocal cache, decode_s, steps
+            nonlocal shared_total, drafted, accepted
             while sched.has_pending or any(r is not None for r in slot_req):
                 progressed = False
-                # 1. admission into freed slots, in fifo order, each
-                # admitted prompt prefilled chunk by chunk right away
+                # 1. admission into freed slots, in policy order
                 for b in range(B):
                     if b >= slot_cap:
                         continue
@@ -421,43 +705,105 @@ class ServeEngine:
                     admitted = next_admission()
                     if admitted is None:
                         break  # pool full: wait for a release
-                    head, groups = admitted
+                    head, groups, covered = admitted
                     page_tables[b, :] = PageAllocator.SCRATCH_GROUP
                     page_tables[b, :len(groups)] = groups
+                    if covered:
+                        shared_total += covered
+                        shared_by_rid[head.rid] = (
+                            shared_by_rid.get(head.rid, 0) + covered)
                     slot_req[b] = head
-                    lengths[b] = 0
+                    lengths[b] = covered
                     chunk = cfg.prefill_chunk
-                    toks = np.asarray([list(head.prompt)], np.int64)
-                    slot_out[b] = []
+                    # a preempted request re-prefills its prompt plus the
+                    # tokens it had generated; shared leading tokens are
+                    # already resident, so only the private suffix runs
+                    toks = np.asarray(
+                        [(list(head.prompt)
+                          + list(head.generated))[covered:]], np.int64)
+                    slot_out[b] = list(head.generated)
                     slot_chunks[b] = [toks[:, s:s + chunk]
                                       for s in range(0, toks.shape[1],
                                                      chunk)]
                     progressed = True
-                    while slot_chunks[b] and slot_req[b] is not None:
+                    if not sched.interleave_prefill:
+                        while slot_chunks[b] and slot_req[b] is not None:
+                            run_chunk(b)
+                # 2. under interleave, one pending prefill chunk a slot a
+                # step (the other schedules drained theirs at admission)
+                for b in range(B):
+                    if slot_req[b] is not None and slot_chunks[b]:
                         run_chunk(b)
-                # 2. one batched decode step over every decoding slot
+                        progressed = True
+                # 3. one batched decode step over every decoding slot: with
+                # speculation, draft_len extra n-gram columns ride the same
+                # dispatch; under on_demand, first grow reservations to
+                # cover the step's writes, preempting on exhaustion
                 active = [b for b in range(B)
                           if slot_req[b] is not None and not slot_chunks[b]]
-                if active:
-                    t = time.time()
-                    feed = torch.as_tensor(next_tok[:, None], device=dev)
-                    lens = torch.as_tensor(lengths, dtype=torch.int32,
-                                           device=dev)
-                    table = torch.as_tensor(page_tables, device=dev)
-                    logits, cache = self.model.decode_step_multi(
-                        self.params, feed, cache, lens, table)
-                    toks = self._greedy_rows(logits).cpu().numpy()
-                    decode_s += time.time() - t
-                    steps += 1
+                drafts: Dict[int, List[int]] = {}
+                if cfg.draft_len > 0:
+                    for b in active:
+                        r = slot_req[b]
+                        # never draft past the generation budget
+                        room = r.max_new - len(slot_out[b]) - 1
+                        d = self._ngram_draft(
+                            _tail_history(r.prompt, slot_out[b],
+                                          cfg.draft_window),
+                            min(cfg.draft_len, room))
+                        if d:
+                            drafts[b] = d
+                if ever_on_demand:
+                    for b in active:
+                        if slot_req[b] is None:
+                            continue  # preempted as a victim this pass
+                        want = None
+                        if b in drafts:
+                            want = min(
+                                int(lengths[b]) + 1 + len(drafts[b]),
+                                slot_req[b].total_tokens)
+                        extend_slot(b, want)
+                    active = [b for b in active
+                              if slot_req[b] is not None
+                              and not slot_chunks[b]]
+                if active and cfg.draft_len > 0:
+                    C = cfg.draft_len + 1
+                    feed = np.zeros((B, C), np.int64)
+                    feed[:, 0] = next_tok
+                    for b, d in drafts.items():
+                        if slot_req[b] is not None:
+                            feed[b, 1:1 + len(d)] = d
+                    toks = dispatch(feed, active)
+                    progressed = True
+                    for b in active:
+                        d = drafts.get(b, [])
+                        drafted += len(d)
+                        # column 0 is the ordinary sampled token (always
+                        # accepted); column i+1 is valid only if draft
+                        # token d[i] matched the token sampled at column i
+                        for i in range(C):
+                            lengths[b] += 1  # the fed token is resident
+                            first_tok_t.setdefault(slot_req[b].rid,
+                                                   time.time())
+                            tok = int(toks[b, i])
+                            accept_token(b, tok)
+                            if i > 0:
+                                accepted += 1
+                            if slot_req[b] is None:
+                                break  # finished mid-chain
+                            if i >= len(d) or tok != d[i]:
+                                break
+                elif active:
+                    toks = dispatch(next_tok[:, None], active)
                     progressed = True
                     for b in active:
                         lengths[b] += 1  # the fed token is now resident
                         first_tok_t.setdefault(slot_req[b].rid, time.time())
-                        accept_token(b, int(toks[b]))
+                        accept_token(b, int(toks[b, 0]))
                 if not progressed:  # defensive: cannot happen (paging.py)
                     raise RuntimeError(
                         "continuous scheduler stalled: pending requests "
-                        "but no admissible slot or decode step")
+                        "but no admissible slot, chunk or decode step")
 
         try:
             loop()
@@ -468,10 +814,13 @@ class ServeEngine:
         finally:
             # post-run pool introspection (tests/bench), even on unwind
             self.last_alloc = alloc
+            self.last_prefix = prefix
 
         return GenerationResult(
             [list(t) for t in results], prefill_s, decode_s, steps,
-            chunks_issued, [dict(r) for r in per_request])
+            chunks_issued, [dict(r) for r in per_request],
+            preemptions=preemptions, shared_prefix_tokens=shared_total,
+            cow_splits=cow_splits, drafted=drafted, accepted=accepted)
 
 
 def _to_device(tree, device: torch.device):

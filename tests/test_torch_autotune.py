@@ -327,9 +327,9 @@ def test_port_tune_leaves_the_reference_cpu_entries_byte_for_byte(
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--joint"], "item 5"),
-    (["--probe", "a=1"], "item 9"),
-    ([], "item 9"),
+    (["--joint"], "ROADMAP queue 1: co-tuning"),
+    (["--probe", "a=1"], "ROADMAP queue 1: dry-run and roofline"),
+    ([], "ROADMAP queue 1: dry-run and roofline"),
 ])
 def test_tune_launcher_unported_modes_raise(argv, match):
     from repro_torch.launch.tune import main

@@ -239,6 +239,92 @@ def test_engine_on_card_matches_cpu(card):
     assert toks["cuda"] == toks["cpu"]
 
 
+TINY_F32 = ModelConfig(
+    name="tiny-lm", family="dense", n_layers=2, d_model=64, n_heads=4,
+    n_kv_heads=2, d_ff=128, vocab_size=512, head_dim=16,
+    param_dtype="float32", compute_dtype="float32", vocab_pad_multiple=64)
+_DONOR = [((i * 37) % 509) + 1 for i in range(32)]
+# (ServeConfig changes, prompts, max_new): each knob on a workload that
+# makes it act (a preemption, a CoW split, drafted columns)
+KNOB_RUNS = {
+    "sjf": (dict(schedule="sjf"), None, None),
+    "interleave": (dict(schedule="interleave"), None, None),
+    "on_demand": (dict(batch_slots=3, kv_cache_pages=4,
+                       page_policy="on_demand"),
+                  [[1, 2, 3], [9, 8, 7, 6], [2, 2, 2, 2, 2], [7, 1, 4, 1]],
+                  [14, 12, 16, 13]),
+    "share_prefix": (dict(max_seq=64, share_prefix=True),
+                     [_DONOR, [1, 2, 3], list(_DONOR), _DONOR[:20]],
+                     [26, 2, 5, 4]),
+    "draft_len": (dict(draft_len=3), None, None),
+    "temperature": (dict(temperature=0.8, seed=7), None, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knob", sorted(KNOB_RUNS))
+def test_engine_knob_on_card_matches_cpu(card, knob):
+    """Each serve knob on the card gives the CPU's tokens and counts; the
+    paged kernel runs n_layers times a single-token step and never on a
+    verify step (draft_len > 0 makes every step one)."""
+    kw, prompts, max_new = KNOB_RUNS[knob]
+    prompts = prompts or [[1, 2, 3, 4, 5], [9, 8, 7], [2] * 9, [5, 4, 3]]
+    max_new = max_new or [6, 3, 5, 7]
+    params = Model(TINY_F32, device="cpu").init(0)
+    scfg = ServeConfig(**dict(dict(max_seq=32, batch_slots=2,
+                                   kv_layout="paged", prefill_chunk=4),
+                              **kw))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(Model(TINY_F32, device=dev), params, scfg,
+                          device=dev)
+        before = pa.paged_flash_decode_cuda.launches
+        res = eng.generate(prompts, max_new)
+        launched = pa.paged_flash_decode_cuda.launches - before
+        eng.last_alloc.check_balanced()
+        out[dev] = (res.tokens, res.steps, res.prefill_chunks,
+                    res.preemptions, res.cow_splits,
+                    res.shared_prefix_tokens, res.drafted, res.accepted)
+    assert out["cuda"] == out["cpu"]
+    single = 0 if scfg.draft_len else res.steps
+    assert launched == TINY_F32.n_layers * single
+    if knob == "on_demand":
+        assert res.preemptions > 0
+    if knob == "share_prefix":
+        assert res.cow_splits > 0
+
+
+@pytest.mark.cuda
+def test_verify_step_launches_no_paged_kernel(card):
+    """decode_step_multi at C = 1 launches the paged kernel once a layer;
+    at C = 4 (a verify step) it launches none, and its column 0 equals
+    the single-token step's logits within the f32 tolerance."""
+    model = Model(TINY_F32, device="cuda")
+    params = model.init(0)
+    T, maxg = 16, 4
+    table = torch.arange(1, 2 * maxg + 1, dtype=torch.int32,
+                         device="cuda").reshape(2, maxg)
+    lengths = torch.tensor([5, 17], dtype=torch.int32, device="cuda")
+    logits = {}
+    for C in (1, 4):
+        cache = model.init_paged_cache(2 * maxg + 1, T)
+        for layer in cache["blocks"]:  # resident K/V for the lengths
+            for pool in layer.values():
+                pool.normal_(generator=torch.Generator(
+                    device="cuda").manual_seed(1))
+        feed = torch.tensor([[3, 1, 4, 1], [5, 9, 2, 6]],
+                            device="cuda")[:, :C]
+        before = pa.paged_flash_decode_cuda.launches
+        logits[C], _ = model.decode_step_multi(params, feed, cache, lengths,
+                                               table)
+        torch.cuda.synchronize()
+        logits[C] = (logits[C], pa.paged_flash_decode_cuda.launches - before)
+    assert logits[1][1] == TINY_F32.n_layers
+    assert logits[4][1] == 0
+    torch.testing.assert_close(logits[4][0][:, :1], logits[1][0],
+                               rtol=1e-4, atol=1e-4)
+
+
 def _randn(shape, dtype, seed=0):
     g = torch.Generator(device="cuda").manual_seed(seed)
     return torch.randn(shape, generator=g, device="cuda").to(dtype)

@@ -5,8 +5,9 @@
   by an AST scan of the sources.
 * Entry points default to ``device="cuda"`` and raise without a card.
 * Every serve knob whose path is not ported raises ``NotImplementedError``
-  (``autotune_kernels`` is ported: ``tests/test_torch_engine.py`` holds it
-  against the reference engine).
+  naming its ROADMAP item; the ported knobs build and generate
+  (``tests/test_torch_engine.py`` and ``tests/test_torch_serve_knobs.py``
+  hold them against the reference engine).
 """
 import ast
 import json
@@ -150,12 +151,6 @@ def test_launcher_runs_on_the_cpu_when_asked(capsys):
 @pytest.mark.parametrize("knob", [
     dict(kv_layout="dense"),
     dict(runtime="wave"),
-    dict(temperature=0.7),
-    dict(schedule="sjf"),
-    dict(schedule="interleave"),
-    dict(page_policy="on_demand"),
-    dict(share_prefix=True),
-    dict(draft_len=2),
     dict(retune=True),
     dict(mesh_shape=(1, 2)),
 ], ids=lambda k: "-".join(f"{a}={b}" for a, b in k.items()))
@@ -165,6 +160,31 @@ def test_unported_knob_raises(knob):
     base.update(knob)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServeEngine(model, model.init(0), ServeConfig(**base), device="cpu")
+
+
+@pytest.mark.parametrize("knob", [
+    dict(temperature=0.7),
+    dict(schedule="sjf"),
+    dict(schedule="interleave"),
+    dict(page_policy="on_demand"),
+    dict(share_prefix=True),
+    dict(draft_len=2),
+], ids=lambda k: "-".join(f"{a}={b}" for a, b in k.items()))
+def test_ported_knob_builds_and_generates(knob):
+    """The knobs the live co-tuner sweeps build an engine on the CPU,
+    generate every token asked for, and leave the pool balanced (their
+    tokens and counts are held to the reference in
+    ``tests/test_torch_serve_knobs.py``)."""
+    model = Model(_small(), device="cpu")
+    base = dict(max_seq=32, batch_slots=2, kv_layout="paged",
+                prefill_chunk=4)
+    base.update(knob)
+    eng = ServeEngine(model, model.init(0), ServeConfig(**base),
+                      device="cpu")
+    res = eng.generate([[1, 2, 3, 4, 5], [1, 2, 3, 4, 6], [7, 8]], 4)
+    assert [len(t) for t in res.tokens] == [4, 4, 4]
+    assert eng.last_alloc.groups_in_use == 0
+    eng.last_alloc.check_balanced()
 
 
 @pytest.mark.parametrize("change", [
