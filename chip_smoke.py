@@ -27,7 +27,10 @@ Phases (each failure exits non-zero):
               at its record shape, and through a CUDA graph replayed with
               its lengths changed in place between replays; timed at the
               record's lengths (1 to 2048) and at phase 5's
-              mid-generation lengths.
+              mid-generation lengths.  Both decode kernels also at the
+              shapes phase 10 gives them: paged decode over a 128-token
+              window (8 groups a slot) at lengths 32 to 40, dense decode
+              at B=8 over 128 entries under every block_kv of its space.
 4. parity   - a tiny f32 model served on the card and on the CPU from the
               same weights, under each serve knob (fifo, sjf, interleave,
               on_demand on a pool that preempts, share_prefix with a
@@ -77,12 +80,36 @@ Phases (each failure exits non-zero):
               versions (gla_impl="jnp", attn_impl="blocked").  (Main path
               of port slice 3.)
 
-Launch counts are set to 0 just before each main path (phases 5, 6, 7, 8
-and each run of 9) and read just after.  The autotune cache of the whole
-run is a temporary file (REPRO_AUTOTUNE_CACHE); nothing is written to the
-user's cache.  The
-line before the last is the card line; the line before it the
-``{"kernels": [...]}`` line; the last line ``{"ok": true, ...}``.
+10. cotune  - (runs last, after phase 8) ACTS co-tunes the serve engine,
+              the train step and the dense decode kernel as one system:
+              (a) ``launch.tune --joint`` on the analytic surrogate at
+              Gemma-7B's shape (budget 24): its winners read back under
+              ``model-sm90`` and it launches nothing on the card; (b) the
+              live composite (``make_live_cotune_sut``) at Gemma-7B's full
+              width (bf16, random weights) with the depth cut to
+              COTUNE_LAYERS of 28, tuned by ``subspace_rr`` at a budget of
+              COTUNE_BUDGET and persisted by ``persist_joint_winners``:
+              every test ran, every serve trial launched the paged kernel
+              n_layers times a single-token step (0 under drafts), the
+              kernel member launched the dense decode kernel and its
+              output at each block_kv tried, on its own inputs, is held to
+              the plain version within TOL, every train loss is finite,
+              the three winners read back under the card's key and the
+              winning serve config deploys and generates every token; each
+              trial's member values, the peak, and default against winner
+              re-timed in turns are printed as records; (c) ``launch.tune
+              --joint --real`` at the reduced config must write its three
+              entries.  Each read-back is at the keys that
+              ``persist_joint_winners`` derives from the composite (the
+              launcher's report names them under ``persisted``).  (Main
+              path of port slice 8.)
+
+Launch counts are set to 0 just before each main path (phases 5, 6, 7, 8,
+each run of 9 and phase 10's live run) and read just after.  The autotune
+cache of the whole run is a temporary file (REPRO_AUTOTUNE_CACHE); nothing
+is written to the user's cache.  The line before the last is the card
+line; the line before it the ``{"kernels": [...]}`` line; the last line
+``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
@@ -458,6 +485,10 @@ def paged_case(B, H, KV, D, T, maxg, dtype, lengths=None, seed=0):
 # profile_decode_step)
 PAGED_GEMMA = dict(B=8, H=16, KV=16, D=256, T=16, maxg=128)
 PAGED_RECORD_LENGTHS = [1, 16, 17, 2048, 300, 777, 1500, 64]
+# phase 10's live serve member: a 128-token window (8 groups a slot),
+# 1 to 8 slots, 32-token prompts plus 8 generated (lengths 32 to 40), at
+# which the launcher picks a split that no shape above uses
+PAGED_COTUNE = dict(H=16, KV=16, D=256, T=16, maxg=8)
 PAGED_ENGINE_LENGTHS = [int(n) + 16 for n in np.random.default_rng(
     SEED).integers(128, 513, size=8)]
 
@@ -566,6 +597,9 @@ def kernels_paged():
         (dict(B=2, H=8, KV=2, D=16, T=32, maxg=3), None),      # GQA
         (dict(B=3, H=4, KV=1, D=32, T=16, maxg=4), None),      # MQA
         (dict(B=2, H=24, KV=2, D=64, T=16, maxg=3), None),     # 12 heads/KV
+        (dict(PAGED_COTUNE, B=8), list(range(33, 41))),        # phase 10's
+        (dict(PAGED_COTUNE, B=3), [32, 36, 40]),
+        (dict(PAGED_COTUNE, B=1), [40]),
     ]
     errs = {}
     for i, (shape, lengths) in enumerate(shapes):
@@ -727,6 +761,34 @@ def kernels_flash():
 ZAMBA_FLASH = (1, 4096, 4096, 32, 32, 64, True, 0, 0, None, None)
 
 
+# phase 10's live kernel member: B=8 slots over a 128-token window at
+# Gemma-7B's heads (B, S, H, KV, D, block_kv)
+COTUNE_DECODE = (8, 128, 16, 16, 256, None)
+
+
+def cotune_block_kv(g):
+    """Dense decode at phase 10's kernel-member shape under every block_kv
+    of its tuning space (0: the launcher's split), bf16 over the whole
+    window as the member times it, against the plain version within
+    TOL."""
+    B, S, H, KV, D, _ = COTUNE_DECODE
+    dtype = torch.bfloat16
+    q, k, v = (rnd(g, (B, H, D), dtype), rnd(g, (B, S, KV, D), dtype),
+               rnd(g, (B, S, KV, D), dtype))
+    kl = torch.tensor(S, dtype=torch.int32, device=DEV)
+    want = fd.decode_attention_ref(q, k, v, kl)
+    errs = {}
+    space = autotune.KernelSpace("decode_attention").space()
+    for bkv in space["block_kv"].choices:
+        errs[bkv] = close(fd.flash_decode_cuda(q, k, v, kl, block_kv=bkv),
+                          want,
+                          f"flash_decode {COTUNE_DECODE[:5]} block_kv {bkv}")
+    print(f"  flash_decode {COTUNE_DECODE[:5]} bf16 (phase 10's kernel "
+          f"member) at every block_kv of its space, max abs err: "
+          + ", ".join(f"{b}: {e:.3e}" for b, e in errs.items())
+          + f" (tol {TOL[dtype]})")
+
+
 def kernels_decode():
     g = torch.Generator(device=DEV).manual_seed(2)
     gemma = (8, 2048, 16, 16, 256, None)  # the engine's slots and cache
@@ -736,6 +798,7 @@ def kernels_decode():
         (1, 100, 4, 1, 32, 32),     # MQA + ragged cache
         (2, 80, 24, 2, 64, 32),     # 12 query heads per KV head
         (1, 4096, 16, 16, 256, None),  # train_4k's tune shape
+        COTUNE_DECODE,
         gemma,
     ]
     errs = {}
@@ -759,6 +822,7 @@ def kernels_decode():
                   f"{max(errs[(shape, n, dtype)] for n in (1, S // 3, S)):.3e}"
                   f" over kv_len 1, {S // 3}, {S} (tol {TOL[dtype]}); "
                   f"kv_len 0 gives zeros")
+    cotune_block_kv(g)
     B, S, H, KV, D = gemma[:5]
     dtype = torch.bfloat16
     q, k, v = (rnd(g, (B, H, D), dtype), rnd(g, (B, S, KV, D), dtype),
@@ -1779,6 +1843,261 @@ def phase_zamba():
     return launched
 
 
+# ---------------------------------------------------------------------------
+# phase 10: ACTS co-tunes the serve engine, the train step and the decode
+# kernel as one system (launch.tune --joint, --joint --real)
+# ---------------------------------------------------------------------------
+# Gemma-7B's width with the depth cut from 28 layers to COTUNE_LAYERS:
+# the train member's fresh model, gradients and f32 moments must fit one
+# card beside the serve member's model
+COTUNE_LAYERS = 4
+COTUNE_BUDGET = 8
+COTUNE_RETIMES = 5
+
+
+def gemma_param_count(cfg) -> int:
+    """Parameters of a tied attn stack: embedding, per layer the
+    attention projections, the gated MLP and two norms, the final norm."""
+    d, hd = cfg.d_model, cfg.head_dim_
+    attn = d * cfg.n_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2
+    mlp = 3 * d * cfg.d_ff
+    return cfg.padded_vocab * d + cfg.n_layers * (attn + mlp + 2 * d) + d
+
+
+def cotune_surrogate(tmp):
+    """(a) ``launch.tune --joint`` on the analytic surrogate: its winners
+    read back under the cost model's key, and nothing ran on the card."""
+    from repro_torch.launch.tune import main as tune_main
+
+    mem0 = torch.cuda.memory_allocated()
+    reset_counts()
+    t = time.perf_counter()
+    rc = tune_main(["--arch", "gemma-7b", "--shape", "train_4k", "--joint",
+                    "--surrogate", "--budget", "24", "--out-dir", tmp])
+    seconds = time.perf_counter() - t
+    check(rc == 0, f"launch.tune --joint exited {rc}")
+    check(all(n == 0 for n in counts().values()),
+          f"the surrogate run launched kernels: {counts()}")
+    check(torch.cuda.memory_allocated() == mem0,
+          "the surrogate run allocated memory on the card")
+    report = json.load(open(os.path.join(
+        tmp, "joint_gemma-7b_train_4k.json")))
+    best = report["best"]["config"]
+    serve = {k.split(".", 1)[1]: v for k, v in best.items()
+             if k.startswith("serve.")}
+    kernel = {k.split(".", 1)[1]: v for k, v in best.items()
+              if k.startswith("kernel.")}
+    keys = report["persisted"]
+    check(keys["backend"] == "model-sm90",
+          f"the surrogate's winners went under {keys['backend']}")
+    got_serve = autotune.cached_serve_config(keys["serve"], keys["dtype"],
+                                             backend="model-sm90")
+    got_kernel = autotune.cached_blocks("decode_attention", keys["kernel"],
+                                        keys["dtype"], backend="model-sm90")
+    check(got_serve == serve and got_kernel == kernel,
+          f"the surrogate's winners did not read back under model-sm90: "
+          f"{got_serve} / {got_kernel} against {serve} / {kernel}")
+    won = report["best"]["metrics"]
+    print(f"  (a) --joint surrogate, budget 24: {report['n_tests']} tests, "
+          f"{seconds:.2f} s, default {report['default']['value']:.1f} -> "
+          f"best {report['best']['value']:.1f} tok/s (model; its decode "
+          f"step {won['step_s']:.6f} s, attention {won['attn_s']:.6f} s); "
+          f"serve {serve}, kernel {kernel}; no launch, no card memory")
+
+
+def cotune_live(card):
+    """(b) the live composite at Gemma-7B's width, depth cut: every trial
+    rebuilds and times the real engine and train step on the card and
+    times the dense decode kernel."""
+    from repro_torch.launch.tune import persist_joint_winners
+    from repro_torch.core.tuner import Tuner
+    from repro_torch.serve.space import (apply_serve_knobs,
+                                         make_live_cotune_sut)
+
+    full = get_config("gemma-7b")
+    cfg = replace(full, n_layers=COTUNE_LAYERS)
+    gib = 1e9
+    for c in (full, cfg):
+        n = gemma_param_count(c)
+        print(f"  train member at {c.n_layers} layers: {n / 1e9:.3f} B "
+              f"params: bf16 params {2 * n / gib:.1f} GB + bf16 grads "
+              f"{2 * n / gib:.1f} GB + f32 moments {8 * n / gib:.1f} GB = "
+              f"{12 * n / gib:.1f} GB before activations and the update's "
+              f"f32 temporaries")
+    serve_gb = 2 * gemma_param_count(cfg) / gib
+    print(f"  serve member's model: {serve_gb:.1f} GB bf16")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    sut = make_live_cotune_sut(cfg, max_seq=128, prompt_len=32, gen_len=8,
+                               n_requests=8, max_slots=8, train_seq=32,
+                               train_batch=8, repeats=3, seed=SEED,
+                               device=DEV)
+    serve, train, kernel = (sut.members[n]
+                            for n in ("serve", "train", "kernel"))
+    seen = {"serve": [], "train": [], "kernel": 0, "trials": []}
+
+    def serve_test(config, test=serve.test):
+        before = pa.paged_flash_decode_cuda.launches
+        m = test(config)
+        seen["serve"].append((config, m,
+                              pa.paged_flash_decode_cuda.launches - before))
+        return m
+
+    def train_test(config, test=train.test):
+        m = test(config)
+        seen["train"].append((config, m))
+        return m
+
+    def kernel_batch(configs, batch=kernel.test_batch):
+        before = fd.flash_decode_cuda.launches
+        out = batch(configs)
+        seen["kernel"] += fd.flash_decode_cuda.launches - before
+        return out
+
+    def composite_batch(configs, batch=sut.test_batch):
+        out = batch(configs)
+        for config, m in zip(configs, out):
+            seen["trials"].append((config, m))
+            print(f"    ({time.perf_counter() - t0:.1f} s) trial "
+                  f"{len(seen['trials'])}: value {m.value:.2f}, peak so far "
+                  f"{torch.cuda.max_memory_allocated() / gib:.2f} GB",
+                  flush=True)
+        return out
+
+    serve.test, train.test = serve_test, train_test
+    kernel.test_batch, sut.test_batch = kernel_batch, composite_batch
+    space = sut.space()
+    rep = Tuner(space, sut, budget=COTUNE_BUDGET, optimizer="subspace_rr",
+                seed=0).run()
+    parts = space.split(rep.best_config)
+    backend = autotune.backend_name(DEV)
+    keys = persist_joint_winners(rep, sut, backend=backend,
+                                 mode="joint-real")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / gib
+
+    check(rep.n_tests == COTUNE_BUDGET,
+          f"{rep.n_tests} tests of a budget of {COTUNE_BUDGET}")
+    check(len(seen["serve"]) == len(seen["train"]) == len(seen["trials"])
+          == rep.n_tests,
+          f"{len(seen['serve'])} serve, {len(seen['train'])} train tests "
+          f"and {len(seen['trials'])} trials for {rep.n_tests} tests")
+    runs = serve.warmup + serve.repeats
+    for config, m, n in seen["serve"]:
+        single = 0 if int(config["draft_len"]) else m.metrics["steps"]
+        check(n == cfg.n_layers * single * runs,
+              f"serve trial {config}: {n} paged launches, expected "
+              f"{cfg.n_layers} x {single} steps x {runs} runs")
+        check(m.metrics["tokens"] == 8 * 8,
+              f"serve trial generated {m.metrics['tokens']} tokens")
+    check(seen["kernel"] > 0 and launched["flash_decode"] > 0,
+          "the kernel member never launched the dense decode kernel")
+    # every block_kv the tuner tried, on the kernel member's own inputs,
+    # against the plain version (after the counts were read)
+    q, k, v, kv_len = kernel._get_inputs()
+    want = fd.decode_attention_ref(q, k, v, kv_len)
+    tried = sorted({space.split(c)["kernel"]["block_kv"]
+                    for c, _ in seen["trials"]})
+    kernel_errs = {bkv: close(kernel.kspace.definition.call(
+        (q, k, v, kv_len), {"block_kv": bkv}), want,
+        f"kernel member block_kv {bkv}") for bkv in tried}
+    del q, k, v, kv_len, want
+    for config, m in seen["train"]:
+        check(np.isfinite(m.metrics["loss"]),
+              f"train trial {config}: loss {m.metrics['loss']}")
+    reads = {
+        "kernel": autotune.cached_blocks("decode_attention", keys["kernel"],
+                                         keys["dtype"], backend=backend),
+        "serve": autotune.cached_serve_config(keys["serve"], keys["dtype"],
+                                              backend=backend),
+        "train": autotune.cached_train_config(keys["train"], keys["dtype"],
+                                              backend=backend)}
+    check(reads == parts, f"winners under {backend}: {reads}, tuned {parts}")
+    engine = ServeEngine(serve.model, serve.params,
+                         apply_serve_knobs(parts["serve"], serve.base),
+                         device=DEV)
+    res = engine.generate(serve.prompts, serve.gen_len)
+    check([len(t) for t in res.tokens] == [serve.gen_len] * 8,
+          "the winning serve config did not generate every token")
+    engine.last_alloc.check_balanced()
+
+    print(f"  {card}; (b) live, gemma-7b width at {COTUNE_LAYERS} layers: "
+          f"{rep.n_tests} tests in {wall:.2f} s (make_live_cotune_sut + "
+          f"tuner + persist), peak {peak_gb:.2f} GB, kernel_ref "
+          f"{sut.scalarize.kernel_ref * 1e3:.4f} ms, launches {launched}; "
+          f"the kernel member's output at each block_kv tried, max abs err "
+          + ", ".join(f"{b}: {e:.3e}" for b, e in kernel_errs.items())
+          + f" (tol {TOL[torch.bfloat16]})")
+    for i, (config, m) in enumerate(seen["trials"]):
+        mv = m.metrics["member_values"]
+        sub = space.split(config)
+        print(f"    trial {i + 1}: value {m.value:.2f} (serve "
+              f"{mv['serve']:.2f} tok/s, latency {m.metrics['latency_s']:.4f}"
+              f" s; train {mv['train']:.2f} tok/s; kernel "
+              f"{mv['kernel'] * 1e3:.4f} ms) serve {sub['serve']} train "
+              f"{sub['train']} kernel {sub['kernel']}")
+    print(f"    winner: serve {parts['serve']}, train {parts['train']}, "
+          f"kernel {parts['kernel']}; deployed: {res.steps} steps, "
+          f"{res.decode_tokens_per_sec:.2f} decode tok/s")
+    # default against winner, re-timed in turns (records, not checks: the
+    # host's pace moves serve tok/s by 2x between calls)
+    default = space.default_config()
+    times = {"default": [], "winner": []}
+    for _ in range(COTUNE_RETIMES):
+        for name, config in (("default", default),
+                             ("winner", rep.best_config)):
+            times[name].append(sut.test(config).value)
+    print("    re-timed in turns, value (default / winner): "
+          + "; ".join(f"{a:.2f} / {b:.2f}" for a, b in
+                      zip(times["default"], times["winner"]))
+          + f"; medians {statistics.median(times['default']):.2f} / "
+          f"{statistics.median(times['winner']):.2f}")
+    return launched
+
+
+def cotune_launcher(tmp):
+    """(c) ``launch.tune --joint --real`` through the launcher, at the
+    reference's reduced config, on the card."""
+    from repro_torch.launch.tune import main as tune_main
+
+    t = time.perf_counter()
+    rc = tune_main(["--arch", "gemma-7b", "--shape", "train_4k", "--joint",
+                    "--real", "--budget", "8", "--real-repeats", "1",
+                    "--out-dir", tmp])
+    seconds = time.perf_counter() - t
+    check(rc == 0, f"launch.tune --joint --real exited {rc}")
+    keys = json.load(open(os.path.join(
+        tmp, "joint_gemma-7b_train_4k_real.json")))["persisted"]
+    backend = autotune.backend_name(DEV)
+    check(keys["backend"] == backend,
+          f"the launcher's winners went under {keys['backend']}")
+    reads = [autotune.cached_blocks("decode_attention", keys["kernel"],
+                                    keys["dtype"], backend=backend),
+             autotune.cached_serve_config(keys["serve"], keys["dtype"],
+                                          backend=backend),
+             autotune.cached_train_config(keys["train"], keys["dtype"],
+                                          backend=backend)]
+    check(all(r is not None for r in reads),
+          f"launch.tune --joint --real wrote {reads} under {backend}")
+    print(f"  (c) launch.tune --joint --real (reduced gemma-7b, budget 8, "
+          f"1 repeat): {seconds:.2f} s; kernel {reads[0]}, serve "
+          f"{reads[1]}, train {reads[2]}")
+
+
+def phase_cotune(card):
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="cotune_") as tmp:
+        cotune_surrogate(tmp)
+        launched = cotune_live(card)
+        cotune_launcher(tmp)
+    print(f"  phase 10: {time.perf_counter() - t:.2f} s")
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke runs only on "
@@ -1791,9 +2110,9 @@ def main() -> int:
     t_start = time.perf_counter()
 
     def phase(n, what):
-        print(f"[{n}/9] ({time.perf_counter() - t_start:.1f} s) {what}")
+        print(f"[{n}/10] ({time.perf_counter() - t_start:.1f} s) {what}")
 
-    print(f"[1/9] device: {name}; torch {torch.__version__}, "
+    print(f"[1/10] device: {name}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(tmp, "cache.json")
@@ -1853,6 +2172,13 @@ def main() -> int:
             phase(8, "zamba2-1.2b forward and loss at full width "
                   "(slice 3's main path)")
             records["gla"]["launches"] = phase_zamba()["gla"]
+            torch.cuda.empty_cache()
+            phase(10, "ACTS co-tunes serve engine, train step and decode "
+                  "kernel (launch.tune --joint, --joint --real; slice 8's "
+                  "main path)")
+            cotuned = phase_cotune(card)
+            for name_ in ("paged_flash_decode", "flash_decode"):
+                records[name_]["cotune_launches"] = cotuned[name_]
         except PhaseError as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1

@@ -15,9 +15,11 @@ architecture end to end:
 The backend component is ``backend_name(device)``: ``cuda-sm90`` on an
 H100, ``model-sm90`` for the Hopper cost model (CPU-side work).  The
 reference writes ``cpu`` for its own cost model into the same file, so
-the two never overwrite each other's winners.  The reference's serve and train
-entries (``put_serve_config`` and the rest) come with ``--joint``
-(ROADMAP queue 1: co-tuning).
+the two never overwrite each other's winners.  The joint co-tuning
+mode's serve and train winners persist in the same file under the
+pseudo-kernel names ``SERVE_SYSTEM`` and ``TRAIN_SYSTEM``
+(``put_serve_config``, ``put_train_config`` and their readers), keyed
+by the same backend component.
 """
 from __future__ import annotations
 
@@ -27,14 +29,23 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 
-from .cache import AutotuneCache, default_cache
+from .cache import AutotuneCache, default_cache, mesh_sig, nearest_mesh
 from .space import KernelSpace, shape_sig
 from .sut import KernelSUT
 
 __all__ = ["autotune_kernel", "ensure_tuned", "resolve_blocks",
-           "cached_blocks", "backend_name"]
+           "cached_blocks", "backend_name", "put_serve_config",
+           "cached_serve_config", "serve_config_candidates",
+           "nearest_mesh_serve_config", "SERVE_SYSTEM",
+           "put_train_config", "cached_train_config", "TRAIN_SYSTEM"]
 
 logger = logging.getLogger("repro_torch.autotune")
+
+# The serve engine's and train step's tuned knobs persist in the same
+# AutotuneCache under these pseudo-kernel names (the joint co-tuning
+# mode's winners) — one file keeps every tuned co-deployment artifact.
+SERVE_SYSTEM = "serve_engine"
+TRAIN_SYSTEM = "train_step"
 
 # cache paths already warned about (resolve_blocks warns once per path)
 _warned_cache_paths: set = set()
@@ -112,6 +123,123 @@ def resolve_blocks(kernel: str, dims: Dict[str, int], dtype: str,
         out.update({k: tuned[k] for k in defaults if k in tuned})
         return out
     return dict(defaults)
+
+
+def put_serve_config(sig_dims: Dict[str, int], dtype: str,
+                     config: Dict[str, Any], value: float,
+                     cache: Optional[AutotuneCache] = None,
+                     backend: Optional[str] = None,
+                     meta: Optional[Dict[str, Any]] = None,
+                     workload: str = "", mesh: str = "") -> str:
+    """Persist a tuned serve-engine knob config (the joint mode's winner).
+
+    Keyed like a kernel entry — (``SERVE_SYSTEM``, model-shape signature,
+    dtype, backend) — so serve knobs and kernel blocks live in one cache
+    file.  ``workload`` is the fingerprint signature the knobs were
+    tuned under (empty: workload-generic, the offline mode's entry);
+    ``mesh`` the device topology (a ``(data, model)`` shape or signature
+    string; empty = single device), so a winner tuned at one device count
+    never resolves at another.  ``backend`` defaults to the card's
+    (``backend_name()``).  Returns the shape signature used.
+    """
+    sig = shape_sig({k: int(v) for k, v in sig_dims.items()})
+    # not `or`: an empty cache is falsy (__len__)
+    cache = default_cache() if cache is None else cache
+    cache.put(SERVE_SYSTEM, sig, dtype, backend or backend_name(),
+              dict(config), value, meta=meta, workload=workload,
+              mesh=mesh_sig(mesh) if mesh else "")
+    return sig
+
+
+def cached_serve_config(sig_dims: Dict[str, int], dtype: str,
+                        cache: Optional[AutotuneCache] = None,
+                        backend: Optional[str] = None,
+                        workload: str = "", mesh: str = ""
+                        ) -> Optional[Dict[str, Any]]:
+    """The tuned serve-engine knobs for this model shape (at this exact
+    workload signature and mesh topology; generic single-device when
+    omitted), or None."""
+    sig = shape_sig({k: int(v) for k, v in sig_dims.items()})
+    cache = default_cache() if cache is None else cache
+    return cache.get_config(SERVE_SYSTEM, sig, dtype,
+                            backend or backend_name(), workload=workload,
+                            mesh=mesh_sig(mesh) if mesh else "")
+
+
+def serve_config_candidates(sig_dims: Dict[str, int], dtype: str,
+                            cache: Optional[AutotuneCache] = None,
+                            backend: Optional[str] = None,
+                            mesh: str = ""
+                            ) -> Dict[str, Dict[str, Any]]:
+    """Every cached serve winner at this model shape and mesh topology,
+    keyed by workload signature (``-`` = generic) — the nearest-
+    signature transfer set."""
+    sig = shape_sig({k: int(v) for k, v in sig_dims.items()})
+    cache = default_cache() if cache is None else cache
+    return cache.scan_workloads(SERVE_SYSTEM, sig, dtype,
+                                backend or backend_name(),
+                                mesh=mesh_sig(mesh) if mesh else "")
+
+
+def nearest_mesh_serve_config(sig_dims: Dict[str, int], dtype: str,
+                              mesh: str,
+                              cache: Optional[AutotuneCache] = None,
+                              backend: Optional[str] = None,
+                              workload: str = ""
+                              ) -> Optional[Dict[str, Any]]:
+    """Warm-start donor lookup across device topologies.
+
+    Exact-mesh hit wins; on a miss the cached winner at the NEAREST mesh
+    signature (``repro_torch.autotune.cache.mesh_distance``) is returned
+    as a donor — annotated with ``donor_mesh``/``mesh_distance`` so
+    callers can tell a transferred seed from a native winner and must
+    re-tune before persisting it at the new topology.  None when nothing
+    is cached at any mesh for this shape/workload.
+    """
+    target = mesh_sig(mesh) if mesh else "1dev"
+    sig = shape_sig({k: int(v) for k, v in sig_dims.items()})
+    cache = default_cache() if cache is None else cache
+    backend = backend or backend_name()
+    exact = cache.get(SERVE_SYSTEM, sig, dtype, backend,
+                      workload=workload, mesh=target)
+    if exact is not None:
+        return dict(exact, donor_mesh=target, mesh_distance=0.0)
+    donors = cache.scan_meshes(SERVE_SYSTEM, sig, dtype, backend,
+                               workload=workload)
+    near = nearest_mesh(donors, target)
+    if near is None:
+        return None
+    donor, dist = near
+    return dict(donors[donor], donor_mesh=donor, mesh_distance=dist)
+
+
+def put_train_config(sig_dims: Dict[str, int], dtype: str,
+                     config: Dict[str, Any], value: float,
+                     cache: Optional[AutotuneCache] = None,
+                     backend: Optional[str] = None,
+                     meta: Optional[Dict[str, Any]] = None) -> str:
+    """Persist tuned train-step knobs (the live joint mode's third winner).
+
+    Keyed (``TRAIN_SYSTEM``, workload-shape signature, dtype, backend) —
+    train knobs live in the same cache file as kernel blocks and the
+    serve-config entry.  Returns the signature used.
+    """
+    sig = shape_sig({k: int(v) for k, v in sig_dims.items()})
+    cache = default_cache() if cache is None else cache
+    cache.put(TRAIN_SYSTEM, sig, dtype, backend or backend_name(),
+              dict(config), value, meta=meta)
+    return sig
+
+
+def cached_train_config(sig_dims: Dict[str, int], dtype: str,
+                        cache: Optional[AutotuneCache] = None,
+                        backend: Optional[str] = None
+                        ) -> Optional[Dict[str, Any]]:
+    """The tuned train-step knobs for this workload shape, or None."""
+    sig = shape_sig({k: int(v) for k, v in sig_dims.items()})
+    cache = default_cache() if cache is None else cache
+    return cache.get_config(TRAIN_SYSTEM, sig, dtype,
+                            backend or backend_name())
 
 
 def autotune_kernel(

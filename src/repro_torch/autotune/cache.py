@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import threading
@@ -40,7 +41,7 @@ except ImportError:  # pragma: no cover - linux container always has it
 
 __all__ = ["AutotuneCache", "SCHEMA_VERSION", "default_cache",
            "reset_default_cache", "mesh_sig", "parse_mesh_sig",
-           "generation"]
+           "mesh_distance", "nearest_mesh", "generation"]
 
 # Bump whenever the key schema changes meaning.  v2: flash_attention
 # signatures gained the SK (KV sequence length) dim — v1 entries were keyed
@@ -111,6 +112,34 @@ def parse_mesh_sig(sig: str) -> Optional[Tuple[int, int]]:
     if data < 1 or model < 1:
         return None
     return (data, model)
+
+
+def mesh_distance(a: str, b: str) -> float:
+    """Topology distance between two mesh signatures: the sum of per-axis
+    log2 size gaps.  Same mesh is 0; growing one axis 2x costs 1; the
+    replicas-vs-TP orientation flip at equal device count (``d2m1`` vs
+    ``d1m2``) costs 2 — a donor at the same orientation is always closer
+    than the transposed mesh."""
+    pa, pb = parse_mesh_sig(a), parse_mesh_sig(b)
+    if pa is None or pb is None:
+        return float("inf")
+    return (abs(math.log2(pa[0]) - math.log2(pb[0]))
+            + abs(math.log2(pa[1]) - math.log2(pb[1])))
+
+
+def nearest_mesh(candidates: Any, target: str
+                 ) -> Optional[Tuple[str, float]]:
+    """The candidate mesh signature nearest ``target`` (and its
+    distance), or None when no candidate parses.  Ties break on sorted
+    signature order, so warm-start donor selection is deterministic."""
+    best: Optional[Tuple[float, str]] = None
+    for sig in sorted(set(candidates)):
+        d = mesh_distance(sig, target)
+        if math.isfinite(d) and (best is None or d < best[0]):
+            best = (d, sig)
+    if best is None:
+        return None
+    return best[1], best[0]
 
 
 def _default_path() -> str:
@@ -234,6 +263,44 @@ class AutotuneCache:
                    ) -> Optional[Dict[str, Any]]:
         entry = self.get(kernel, sig, dtype, backend, workload, mesh)
         return dict(entry["config"]) if entry else None
+
+    def scan_workloads(self, kernel: str, sig: str, dtype: str,
+                       backend: str, mesh: str = ""
+                       ) -> Dict[str, Dict[str, Any]]:
+        """Every entry at this (kernel, shape, dtype, backend, mesh),
+        keyed by its workload-signature component (``-`` = workload-
+        generic) — the candidate set a nearest-signature transfer
+        searches.  Scoped to ONE mesh signature: workload transfer never
+        crosses device topologies (that is ``scan_meshes``'s job, and an
+        explicit warm-start decision)."""
+        parts = self.key(kernel, sig, dtype, backend, "\0", mesh).split("|")
+        head, tail = parts[:5], parts[6]
+        with self._lock:
+            data = self._load()
+            out: Dict[str, Dict[str, Any]] = {}
+            for k, v in data.items():
+                kp = k.split("|")
+                if len(kp) == 7 and kp[:5] == head and kp[6] == tail:
+                    out[kp[5]] = dict(v)
+            return out
+
+    def scan_meshes(self, kernel: str, sig: str, dtype: str,
+                    backend: str, workload: str = ""
+                    ) -> Dict[str, Dict[str, Any]]:
+        """Every entry at this (kernel, shape, dtype, backend, workload),
+        keyed by its mesh-signature component — the donor set
+        ``nearest_mesh`` warm-start transfer searches when no winner
+        exists at the deployment's own topology."""
+        parts = self.key(kernel, sig, dtype, backend, workload).split("|")
+        head = parts[:6]
+        with self._lock:
+            data = self._load()
+            out: Dict[str, Dict[str, Any]] = {}
+            for k, v in data.items():
+                kp = k.split("|")
+                if len(kp) == 7 and kp[:6] == head:
+                    out[kp[6]] = dict(v)
+            return out
 
     def put(self, kernel: str, sig: str, dtype: str, backend: str,
             config: Dict[str, Any], value: float,

@@ -5,12 +5,22 @@ unit hypercube, LHS sampling, RRS and the baseline optimizers, and the
 tuner ⇄ system-under-tune architecture.  Module for module, name for name
 and draw for draw it is the reference's code, so the same space, objective
 and seed give the same trial stream in both packages
-(``tests/test_torch_tuner.py``).  The reference's surrogates, composite
-spaces and the JAX system-under-tune are not ported yet (ROADMAP queue 1:
-co-tuning; dry-run and roofline).
+(``tests/test_torch_tuner.py``, ``tests/test_torch_composite.py``):
+composite spaces and the ``subspace_rr`` optimizer (``composite``), the
+``Surrogate`` base class (``surrogates``) and the live train step as a
+system under tune (``sut_torch``).  The reference's benchmark surrogates
+and its dry-run system-under-tune are not ported yet (ROADMAP queue 1:
+lint and benches; dry-run and roofline).
 """
 from .base import BatchObjective, BudgetedRun, BudgetExhausted, Trial, \
     TuningResult
+from .composite import (
+    CompositeSpace,
+    CompositeSUT,
+    SubspaceRoundRobinOptimizer,
+    throughput_under_sla,
+    weighted_objective,
+)
 from .optimizers import (
     OPTIMIZERS,
     CoordinateSearchOptimizer,
@@ -28,6 +38,7 @@ from .params import (
     ParameterSpace,
 )
 from .rrs import RRSOptimizer
+from .surrogates import Surrogate
 from .sampling import (
     centered_l2_discrepancy,
     get_sampler,

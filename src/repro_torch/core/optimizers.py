@@ -12,9 +12,9 @@ here are the methods the paper positions against:
                     strategy humans follow, §5.3).
 
 ``subspace_rr`` (BestConfig-style divide-and-diverge over a composite
-space's subspaces, ``repro.core.composite`` in the reference) is not
-ported yet: it comes with the ``--joint`` mode (ROADMAP queue 1:
-co-tuning).
+space's subspaces) lives in ``repro_torch.core.composite`` and registers
+itself into ``OPTIMIZERS`` on import — keeping the registry here
+import-cycle-free.
 
 All optimizers minimize, operate on the unit hypercube, and respect a strict
 test budget — the resource limit of the ACTS problem definition (§3).

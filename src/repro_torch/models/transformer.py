@@ -66,17 +66,57 @@ def _apply_block_full(kind: str, p: Dict[str, Any], x: torch.Tensor,
     raise ValueError(f"unknown block kind {kind!r}")
 
 
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the outputs
+    of matrix products, recompute everything else in the backward pass
+    (the counterpart of ``jax.checkpoint_policies.checkpoint_dots``)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in _MATMUL_OPS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_MATMUL_OPS = frozenset({
+    torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+    torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default})
+
+
+def _remat_wrap(fn, remat: str):
+    """``fn(x) -> (x, aux)`` run under the remat policy: ``"full"``
+    recomputes the whole superblock in the backward pass, ``"dots"``
+    keeps its matrix products and recomputes the rest (as
+    ``jax.checkpoint`` and its ``checkpoint_dots`` policy do around the
+    reference's superblock)."""
+    if remat == "none":
+        return fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    if remat == "full":
+        return lambda x: checkpoint(fn, x, use_reentrant=False)
+    if remat == "dots":
+        return lambda x: checkpoint(
+            fn, x, use_reentrant=False,
+            context_fn=lambda: create_selective_checkpoint_contexts(
+                _save_matmuls))
+    raise ValueError(f"unknown remat policy {remat!r}")
+
+
 def _stack_forward(blocks_params: List[Dict[str, Any]], x: torch.Tensor,
                    ctx: Dict[str, Any], cfg: ModelConfig,
                    remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
-    if remat != "none":
-        raise NotImplementedError(
-            f"remat={remat!r}: rematerialization is not ported (ROADMAP "
-            "queue 1: the train step)")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     n = len(cfg.superblock)
-    for i, p in enumerate(blocks_params):
-        x, a = _apply_block_full(cfg.superblock[i % n], p, x, ctx, cfg)
+    for s0 in range(0, len(blocks_params), n):
+        def superblock(x, group=blocks_params[s0:s0 + n]):
+            a_sb = torch.zeros((), dtype=torch.float32, device=x.device)
+            for i, p in enumerate(group):
+                x, a = _apply_block_full(cfg.superblock[i], p, x, ctx, cfg)
+                a_sb = a_sb + a
+            return x, a_sb
+
+        x, a = _remat_wrap(superblock, remat)(x)
         aux = aux + a
     return x, aux
 

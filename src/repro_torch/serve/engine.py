@@ -188,7 +188,7 @@ _UNPORTED = (
      "the dense KV layout (ROADMAP queue 1: dense layout and wave "
      "runtime)"),
     ("retune", lambda c: c.retune,
-     "online retuning (ROADMAP queue 1: co-tuning)"),
+     "online retuning (ROADMAP queue 1: online retuning)"),
     ("mesh_shape", lambda c: c.mesh_shape is not None,
      "multi-device serving (ROADMAP queue 1: multi-device)"),
 )

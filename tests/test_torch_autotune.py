@@ -327,7 +327,7 @@ def test_port_tune_leaves_the_reference_cpu_entries_byte_for_byte(
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--joint"], "ROADMAP queue 1: co-tuning"),
+    (["--joint", "--max-devices", "2"], "ROADMAP queue 1: multi-device"),
     (["--probe", "a=1"], "ROADMAP queue 1: dry-run and roofline"),
     ([], "ROADMAP queue 1: dry-run and roofline"),
 ])

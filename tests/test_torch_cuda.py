@@ -689,3 +689,69 @@ def test_zamba2_forward_on_card_matches_cpu(card):
     assert fa.flash_attention_cuda.launches - f0 == 2 * 2
     torch.testing.assert_close(h.cpu(), h_cpu, rtol=1e-3, atol=1e-3)
     assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [dict(), dict(schedule="interleave",
+                                                prefill_chunk=8),
+                                   dict(draft_len=2, share_prefix=1)],
+                         ids=["defaults", "interleave", "drafts"])
+def test_live_serve_sut_counts_on_card_match_cpu(card, knobs):
+    """LiveServeSUT on a tiny f32 model: the card's counts (chunks, steps,
+    tokens) are the CPU's, and each timed generate of a single-token
+    config launches the paged kernel n_layers times a step."""
+    from repro_torch.serve.space import LiveServeSUT
+
+    params = Model(TINY_F32, device="cpu").init(0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sut = LiveServeSUT(Model(TINY_F32, device=dev), params,
+                           base=ServeConfig(max_seq=32, kv_layout="paged"),
+                           prompt_len=9, gen_len=6, n_requests=4, warmup=1,
+                           repeats=2, max_slots=4, device=dev)
+        cfg = dict(sut.space().default_config(), **knobs)
+        before = pa.paged_flash_decode_cuda.launches
+        m = sut.test(cfg)
+        launched = pa.paged_flash_decode_cuda.launches - before
+        out[dev] = {k: m.metrics[k] for k in ("prefill_chunks", "steps",
+                                              "tokens")}
+    assert out["cuda"] == out["cpu"]
+    single = 0 if cfg["draft_len"] else out["cuda"]["steps"]
+    assert launched == TINY_F32.n_layers * single * (1 + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat,microbatches", [("none", 1), ("full", 2),
+                                                ("dots", 4)])
+def test_train_step_on_card_matches_cpu(card, remat, microbatches):
+    """Three train steps of a tiny f32 model from the same weights and
+    batches: the card's losses follow the CPU's (cuBLAS and the CPU's
+    GEMMs round differently; Adam amplifies a near-zero gradient's
+    rounding to an update of up to lr, so later steps are held to a
+    looser bar than the first)."""
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.optim import OptimizerConfig, adamw_init
+    from repro_torch.train import RunKnobs, make_train_step
+
+    knobs = RunKnobs(rules_preset="dp", remat=remat,
+                     microbatches=microbatches, loss_chunk=0)
+    opt = OptimizerConfig(learning_rate=1e-3, warmup_steps=0,
+                          schedule="constant")
+    params = Model(TINY_F32, device="cpu").init(0)
+    data = SyntheticLMDataset(DataConfig(vocab_size=512, seq_len=16,
+                                         global_batch=4, seed=0))
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        model = Model(TINY_F32, device=dev)
+        step = make_train_step(model, opt, knobs)
+        p = _to_card(params) if dev == "cuda" else params
+        state = adamw_init(p)
+        losses[dev] = []
+        for i in range(3):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in data.batch_at(i).items()}
+            p, state, m = step(p, state, batch)
+            losses[dev].append(float(m["loss"]))
+    assert abs(losses["cuda"][0] - losses["cpu"][0]) <= 1e-5
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        assert abs(a - b) <= 1e-3 * abs(b)

@@ -148,6 +148,25 @@ def test_launcher_runs_on_the_cpu_when_asked(capsys):
     assert "continuous/paged/fifo on cpu" in capsys.readouterr().out
 
 
+def test_cotune_entry_points_default_to_the_card(no_cuda):
+    """The live co-tuning entry points take a device whose default is the
+    card (the reference's have no such argument)."""
+    import inspect
+
+    from repro_torch.core.sut_torch import TrainStepSUT
+    from repro_torch.serve.space import LiveServeSUT, make_live_cotune_sut
+
+    for fn in (TrainStepSUT, LiveServeSUT, make_live_cotune_sut):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_live_cotune_sut(_small())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TrainStepSUT(_small())
+    model = Model(_small(), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LiveServeSUT(model, model.init(0))
+
+
 @pytest.mark.parametrize("knob", [
     dict(kv_layout="dense"),
     dict(runtime="wave"),

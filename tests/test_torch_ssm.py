@@ -258,9 +258,29 @@ def test_serve_paths_raise_on_a_hybrid_stack(zamba):
     model = Model(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model.init_paged_cache(4, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.forward(params, {"tokens": torch.zeros(1, 4, dtype=torch.long)},
-                      remat="full")
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_gives_the_plain_loss_on_the_hybrid_stack(zamba, remat):
+    """``remat="full"`` (and ``"dots"``) recompute the superblock in the
+    backward pass: the loss and its gradients are ``"none"``'s."""
+    _, _, cfg, params = zamba
+    model = Model(cfg, device="cpu")
+    tokens, labels = _batch(cfg, 1, 24)
+    batch = {"tokens": torch.from_numpy(tokens),
+             "labels": torch.from_numpy(labels)}
+    block = params["blocks"][0]
+    out = {}
+    for policy in ("none", remat):
+        w = block["mixer"]["in_proj"].detach().requires_grad_(True)
+        tracked = dict(params, blocks=[dict(block, mixer=dict(
+            block["mixer"], in_proj=w))] + params["blocks"][1:])
+        total, _ = model.loss(tracked, batch, remat=policy)
+        out[policy] = (float(total.detach()),
+                       torch.autograd.grad(total, w)[0])
+    assert out[remat][0] == out["none"][0]
+    np.testing.assert_allclose(out[remat][1].numpy(), out["none"][1].numpy(),
+                               rtol=1e-5, atol=1e-7)
 
 
 def test_port_init_runs_the_hybrid_stack():
