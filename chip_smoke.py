@@ -30,7 +30,9 @@ Phases (each failure exits non-zero):
               mid-generation lengths.  Both decode kernels also at the
               shapes phase 10 gives them: paged decode over a 128-token
               window (8 groups a slot) at lengths 32 to 40, dense decode
-              at B=8 over 128 entries under every block_kv of its space.
+              at B=8 over 128 entries under every block_kv of its space;
+              paged decode at the shape phase 11 gives it (64 groups a
+              slot, lengths of its trace, 321 to 584).
 4. parity   - a tiny f32 model served on the card and on the CPU from the
               same weights, under each serve knob (fifo, sjf, interleave,
               on_demand on a pool that preempts, share_prefix with a
@@ -38,7 +40,11 @@ Phases (each failure exits non-zero):
               and the counts of steps, prefill chunks, preemptions, CoW
               splits, shared, drafted and accepted tokens must be equal;
               the paged kernel runs n_layers times a single-token step
-              and never on a verify step.
+              and never on a verify step.  Then the drifting trace of
+              tests/test_workload_retune.py under retune (RETUNE_KW,
+              anchored on a phase-A-only run): tokens, counts and each
+              retune event's step, signature, config, applied knobs and
+              warm source equal on card and CPU.
 5. serve    - Gemma-7B at full width in bf16 (random weights from a seed,
               made on the card) serves 8 requests through the paged
               continuous engine; every decode step must launch the paged
@@ -103,9 +109,47 @@ Phases (each failure exits non-zero):
               ``persist_joint_winners`` derives from the composite (the
               launcher's report names them under ``persisted``).  (Main
               path of port slice 8.)
+11. retune  - (runs after phase 9, before phase 8, on phase 5's model)
+              Gemma-7B at full width in bf16, ServeConfig(max_seq=1024,
+              batch_slots=8, prefill_chunk=128, slot_cap=3) with the
+              online retuner, on phase 4's drifting trace with prompts
+              x16 and generations x4 (3 distinct 320-token prompts, 48
+              new tokens each, then 12 of a shared 512-token prefix + 48
+              own tokens, 24 new each), anchored on a run of 6 phase-A
+              requests with its acceptance left unset (the trigger then
+              reads only the trace's shape, which bf16 rounding cannot
+              move): at least one swap must fire past the threshold
+              with knobs applied and a finite measured acceptance, the
+              pool must end balanced, the paged kernel must run n_layers
+              times a single-token step (none on the verify steps a swap
+              to drafts brings), and the winner must read back from the
+              run's cache under ``cuda-sm90`` at the event's signature;
+              the first layer's paged call of a single-token step holding
+              phase-B requests, captured during the run, is launched again
+              on its inputs (bit for bit equal) and held to the plain
+              version within TOL after the counts are read.
+              Tokens are counted against the trace served without retune,
+              under phase 9's divergence rule.  Records: each retune's
+              host seconds, decode tok/s before and after the swap.
+              (Main path of port slice 9.)
+12. train   - (runs last) ``train()`` at Gemma-7B's width with the depth
+              cut to TRAIN_LAYERS = 2 of 28 (1.34 B params; 28 layers'
+              params, moments and gradients do not fit the card), 8 x 128
+              tokens a step, 6 steps, async checkpoints every 2 steps
+              (keep 1), killed at step 3 by SimulatedFailure and resumed
+              from step 2, against an uninterrupted run that writes no
+              checkpoint: every restored leaf's CRC32 must equal the CRC32
+              taken when it was saved (before the next step ran), the
+              resumed losses and final params must meet the train step's
+              parity bars, and only the last checkpoint may remain (no
+              ``.tmp``).  Records: bytes a checkpoint, seconds a save and
+              a restore.  Then TorchMeasuredSUT on the same 2-layer
+              model at 8 x 128 tokens a step under the tuner (budget 4):
+              every trial's tokens/s and loss finite.
 
 Launch counts are set to 0 just before each main path (phases 5, 6, 7, 8,
-each run of 9 and phase 10's live run) and read just after.  The autotune
+each run of 9, phase 10's live run, phase 11's retune run and phase 12's
+train runs) and read just after.  The autotune
 cache of the whole run is a temporary file (REPRO_AUTOTUNE_CACHE); nothing
 is written to the user's cache.  The line before the last is the card
 line; the line before it the ``{"kernels": [...]}`` line; the last line
@@ -115,6 +159,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import os
 import re
 import statistics
@@ -141,7 +186,7 @@ from repro_torch.kernels import gla as gl  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels.ref import attention_ref, rmsnorm_ref  # noqa: E402
-from repro_torch.models import Model  # noqa: E402
+from repro_torch.models import Model, count_params  # noqa: E402
 from repro_torch.models.gla import chunked_gla  # noqa: E402
 from repro_torch.serve import ServeConfig, ServeEngine  # noqa: E402
 
@@ -600,6 +645,10 @@ def kernels_paged():
         (dict(PAGED_COTUNE, B=8), list(range(33, 41))),        # phase 10's
         (dict(PAGED_COTUNE, B=3), [32, 36, 40]),
         (dict(PAGED_COTUNE, B=1), [40]),
+        # phase 11's: the Gemma-7B decode shape at max_seq 1024 (64
+        # groups a slot), lengths of the drifting trace at its scale
+        (dict(PAGED_GEMMA, maxg=RETUNE_BASE["max_seq"] // PAGED_GEMMA["T"]),
+         PAGED_RETUNE_LENGTHS),
     ]
     errs = {}
     for i, (shape, lengths) in enumerate(shapes):
@@ -1191,6 +1240,100 @@ def phase_parity():
         print(f"  {name}: tokens and counts equal on card and cpu; "
               + ", ".join(f"{c} {a}" for c, (a, _) in counts_.items())
               + f"; {launched} kernel launches")
+    parity_retune(params)
+
+
+# the online retuner on phase 4's tiny model: the reference test's
+# drifting trace and retune settings (tests/test_workload_retune.py,
+# _drift_workload and RETUNE_KW), anchored on a phase-A-only run
+RETUNE_KW = dict(retune=True, retune_budget=8, retune_threshold=0.3,
+                 retune_window=10, retune_cooldown=200,
+                 retune_check_every=2, retune_min_requests=6)
+RETUNE_EVENT_KEYS = ("step", "signature", "config", "applied",
+                     "warm_source")
+
+
+def drift_workload(vocab, prompt_scale=1, gen_scale=1, seed=0):
+    """``_drift_workload``: 3 distinct prompts of 20 tokens (12 new each),
+    then 12 of a shared 32-token prefix and 3 own tokens (6 new each),
+    prompt lengths times ``prompt_scale``, generations times
+    ``gen_scale``, tokens drawn below ``vocab``."""
+    rng = np.random.default_rng(seed)
+    pa_ = [rng.integers(1, vocab, size=20 * prompt_scale).tolist()
+           for _ in range(3)]
+    shared = rng.integers(1, vocab, size=32 * prompt_scale).tolist()
+    pb = [shared + rng.integers(1, vocab, size=3 * prompt_scale).tolist()
+          for _ in range(12)]
+    return pa_ + pb, [12 * gen_scale] * 3 + [6 * gen_scale] * 12
+
+
+def phase_a_signature(model, params, base, vocab, prompt_scale=1,
+                      gen_scale=1, device=DEV, accept=True):
+    """``_phase_a_sig``: the signature a stale offline winner was tuned
+    under, from a run of 6 phase-A requests with the detector anchored
+    but inert.  ``accept=False`` leaves its acceptance unset (``x?``), so
+    ``fingerprint_distance`` skips that term."""
+    from repro_torch.serve.workload import fingerprint_sig
+
+    rng = np.random.default_rng(0)
+    pa_ = [rng.integers(1, vocab, size=20 * prompt_scale).tolist()
+           for _ in range(6)]
+    eng = ServeEngine(model, params, ServeConfig(
+        **base, retune=True, retune_threshold=10.0, retune_min_requests=6,
+        retune_window=10), device=device)
+    eng.generate(pa_, [12 * gen_scale] * 6)
+    fp = eng.last_retuner.baseline
+    return fingerprint_sig(fp if accept else replace(fp, accept_rate=math.nan))
+
+
+def single_token_steps(res) -> int:
+    """Decode steps that ran the paged kernel: all of them until a swap
+    turns drafts on (every later step is a verify step)."""
+    for ev in res.retunes:
+        if "draft_len" in ev["applied"] and ev["applied"]["draft_len"][1]:
+            return ev["step"]
+    return res.steps
+
+
+def parity_retune(params):
+    """The drifting trace under retune, on the card and on the CPU: the
+    tokens, every count and each retune event's step, signature, config,
+    applied knobs and warm source must be equal (the card's winner keyed
+    ``cuda-sm90``, the CPU's ``model-sm90``)."""
+    base = dict(max_seq=48, batch_slots=8, kv_layout="paged",
+                prefill_chunk=8, slot_cap=3)
+    sig = {d: phase_a_signature(Model(TINY, device=d), params, base, 500,
+                                device=d) for d in ("cpu", DEV)}
+    check(sig["cpu"] == sig[DEV], f"phase-A signatures differ: {sig}")
+    scfg = ServeConfig(**base, tuned_signature=sig["cpu"], **RETUNE_KW)
+    outs = {}
+    for d in ("cpu", DEV):
+        eng = ServeEngine(Model(TINY, device=d), params, scfg, device=d)
+        before = pa.paged_flash_decode_cuda.launches
+        outs[d] = eng.generate(*drift_workload(500))
+        launched = pa.paged_flash_decode_cuda.launches - before
+        eng.last_alloc.check_balanced()
+    card, cpu = outs[DEV], outs["cpu"]
+    check(card.tokens == cpu.tokens, "retune: tokens differ on card and cpu")
+    counts_ = {c: (getattr(card, c), getattr(cpu, c)) for c in PARITY_COUNTS}
+    check(all(a == b for a, b in counts_.values()),
+          f"retune: counts differ (card, cpu): {counts_}")
+    events = [[{k: e[k] for k in RETUNE_EVENT_KEYS} for e in r.retunes]
+              for r in (card, cpu)]
+    check(events[0] == events[1],
+          f"retune: events differ: card {events[0]} vs cpu {events[1]}")
+    check(len(card.retunes) == 1 and card.retunes[0]["applied"],
+          f"retune: {len(card.retunes)} retunes")
+    single = single_token_steps(card)
+    check(launched == TINY.n_layers * single,
+          f"retune: {launched} kernel launches for {single} single-token "
+          "steps")
+    ev = card.retunes[0]
+    print(f"  retune (anchor {sig['cpu']}): tokens, counts and events equal "
+          f"on card and cpu; swap at step {ev['step']} of {card.steps} to "
+          f"{ev['signature']}: " + ", ".join(
+              f"{k} {a}->{b}" for k, (a, b) in ev["applied"].items())
+          + f"; {launched} kernel launches")
 
 
 # ---------------------------------------------------------------------------
@@ -1683,6 +1826,204 @@ def phase_knobs(model, params, prompts, max_new, baseline, logit_err,
 
 
 # ---------------------------------------------------------------------------
+# phase 11: online retuning on Gemma-7B at full width
+# ---------------------------------------------------------------------------
+# phase 4's drifting trace at Gemma-7B scale: prompt lengths x16 (phase A
+# 320 tokens, phase B a 512-token shared prefix + 48 own), generations x4
+# (48 and 24 new tokens)
+RETUNE_PROMPT_SCALE = 16
+RETUNE_GEN_SCALE = 4
+RETUNE_BASE = dict(max_seq=1024, batch_slots=8, kv_layout="paged",
+                   prefill_chunk=128, slot_cap=3)
+# the lengths a decode step of that trace gives the paged kernel: phase A's
+# 320-token prompts plus 0 to 48 generated, phase B's 560 plus 0 to 24
+PAGED_RETUNE_LENGTHS = [321, 344, 368, 561, 572, 584, 330, 575]
+
+
+def timed_dispatches(model, capture_when):
+    """Wrap ``model.decode_step_multi`` (on this instance) to record each
+    dispatch: (seconds to a device sync, columns, slots holding a
+    request), and ``ops.paged_flash_decode`` to keep clones of the inputs
+    and output of the first layer's call in the first single-token
+    dispatch whose host lengths satisfy ``capture_when``.  Returns the
+    record list, the capture list and the undo."""
+    log, kept, armed = [], [], []
+    real = model.decode_step_multi
+    real_op = ops.paged_flash_decode
+
+    def wrapped(params, tokens, cache, lengths, page_table):
+        if (not kept and tokens.shape[1] == 1
+                and capture_when(lengths.tolist())):
+            armed.append(True)
+        t = time.perf_counter()
+        out = real(params, tokens, cache, lengths, page_table)
+        torch.cuda.synchronize()
+        log.append((time.perf_counter() - t, tokens.shape[1],
+                    int((lengths > 0).sum())))
+        armed.clear()
+        return out
+
+    def op(q, k_pages, v_pages, page_table, lengths):
+        out = real_op(q, k_pages, v_pages, page_table, lengths)
+        if armed and not kept:
+            kept.append([t.clone() for t in (q, k_pages, v_pages,
+                                             page_table, lengths, out)])
+        return out
+
+    def undo():
+        del model.decode_step_multi
+        ops.paged_flash_decode = real_op
+
+    model.decode_step_multi = wrapped
+    ops.paged_flash_decode = op
+    return log, kept, undo
+
+
+def phase_retune(model, params, logit_err, card):
+    """The online retuner at full width: the drifting trace served with
+    retune on phase 5's model.  At least one swap must fire past the
+    threshold with knobs applied and a finite measured acceptance; the
+    pool must end balanced; the paged kernel must run n_layers times a
+    single-token step; the winner must read back from the run's cache
+    under the card's key at its signature.  Greedy tokens are compared
+    with the same trace served without retune (a new max_batch changes
+    the batch composition, so bf16 rounding can move): a divergence must
+    sit at a top-2 logit gap within DIVERGE_GAP_FACTOR x phase 5's logit
+    error.  Records: each retune's host seconds, and decode tok/s before
+    and after the swap."""
+    from repro_torch.serve import workload
+
+    cfg = model.cfg
+    t_phase = time.perf_counter()
+    # the anchor leaves acceptance unset: before a swap it comes from the
+    # one-token n-gram probe against greedy bf16 tokens, which rounding can
+    # move, and the first check past the threshold clears it by a few
+    # thousandths (the distance climbs about 0.005 a check).  Without it
+    # the trigger reads only the trace's shape (arrivals, lengths, depth,
+    # spread, share), so the swap step is the same on every run
+    sig = phase_a_signature(model, params, RETUNE_BASE, cfg.vocab_size,
+                            RETUNE_PROMPT_SCALE, RETUNE_GEN_SCALE,
+                            accept=False)
+    prompts, max_new = drift_workload(cfg.vocab_size, RETUNE_PROMPT_SCALE,
+                                      RETUNE_GEN_SCALE)
+    base = ServeEngine(model, params, ServeConfig(**RETUNE_BASE),
+                       device=DEV).generate(prompts, max_new)
+    retune_s = []
+    real_retune = workload.OnlineRetuner.retune
+
+    def timed_retune(self, *a, **kw):
+        t = time.perf_counter()
+        out = real_retune(self, *a, **kw)
+        retune_s.append(time.perf_counter() - t)
+        return out
+
+    engine = ServeEngine(model, params, ServeConfig(
+        **RETUNE_BASE, tuned_signature=sig, **RETUNE_KW), device=DEV)
+    # a phase-B request (560 prompt tokens) resident beside another
+    log, kept, undo = timed_dispatches(
+        model, lambda ln: max(ln) >= 560 and sum(n > 0 for n in ln) >= 2)
+    workload.OnlineRetuner.retune = timed_retune
+    try:
+        reset_counts()
+        res = engine.generate(prompts, max_new)
+        launches = counts()
+    finally:
+        workload.OnlineRetuner.retune = real_retune
+        undo()
+    engine.last_alloc.check_balanced()
+    check(engine.last_alloc.groups_in_use == 0, "retune: pages left in use")
+    for toks, m in zip(res.tokens, max_new):
+        check(len(toks) == m and all(0 <= t < cfg.vocab_size for t in toks),
+              "retune: a malformed continuation")
+    check(len(res.retunes) >= 1, f"retune: no swap fired (anchor {sig})")
+    for ev in res.retunes:
+        check(ev["distance"] > RETUNE_KW["retune_threshold"]
+              and ev["applied"],
+              f"retune: event at step {ev['step']}: distance "
+              f"{ev['distance']:.4f}, applied {ev['applied']}")
+        check(math.isfinite(ev["measured_accept"]),
+              f"retune: measured acceptance {ev['measured_accept']}")
+        got = autotune.serve_config_candidates(
+            {"S": RETUNE_BASE["max_seq"], "H": cfg.n_heads,
+             "KV": cfg.n_kv_heads, "D": cfg.head_dim_}, cfg.compute_dtype,
+            backend="cuda-sm90").get(ev["signature"])
+        check(got is not None and got["config"] == ev["config"]
+              and got["meta"]["source"] == "online_retune",
+              f"retune: the winner at {ev['signature']} reads back as "
+              f"{got}")
+    single = single_token_steps(res)
+    check(launches["paged_flash_decode"] == cfg.n_layers * single,
+          f"retune: {launches['paged_flash_decode']} paged launches for "
+          f"{single} single-token steps")
+    check(len(log) == res.steps, f"{len(log)} dispatches, {res.steps} steps")
+    # one captured call of the main path against the plain version (after
+    # the counts were read): a fresh launch on its inputs must equal what
+    # the run computed bit for bit, and the plain version within TOL on
+    # the rows holding a request (an empty row is zeros by the kernel's
+    # contract, the plain version's softmax over no keys is not)
+    check(len(kept) == 1, "retune: no single-token step held a phase-B "
+                          "request beside another")
+    q, kp, vp, pt, ln, ran = kept.pop()
+    fresh = pa.paged_flash_decode_cuda(q, kp, vp, pt, ln)
+    check(torch.equal(fresh, ran), "retune: a fresh launch on the captured "
+                                   "inputs differs from the run's output")
+    rows = ln > 0
+    err, rel = paged_close(fresh[rows], pa.paged_attention_ref(
+        q, kp, vp, pt, ln)[rows], ln[rows], "retune: captured paged call")
+    print(f"  captured paged call (B={q.shape[0]}, {kp.shape[0]} groups of "
+          f"{kp.shape[1]}, {pt.shape[1]} a slot, lengths {ln.tolist()}): "
+          f"equal to a fresh launch bit for bit; max abs err {err:.3e} "
+          f"(tol {TOL[q.dtype]}), norm-relative err {rel:.3e} over the rows "
+          f"of {PAGED_LONG} tokens or more (bar {FLASH_REL_TOL[q.dtype]})")
+    del q, kp, vp, pt, ln, ran, fresh
+    same, diverged = first_divergences(model, params, prompts, base.tokens,
+                                       res.tokens)
+    bar = DIVERGE_GAP_FACTOR * logit_err
+    for i, j, g in diverged:
+        check(g <= bar, f"retune: request {i} diverges at token {j} where "
+                        f"the top-2 gap {g:.6f} > {bar:.6f}")
+    # records: decode tok/s before and after the first swap (tokens of a
+    # dispatch: one a decoding slot before it; after it, the rest of the
+    # decoded tokens: all tokens less one a prefill completion)
+    k = res.retunes[0]["step"]
+    before_tok = sum(n for _, _, n in log[:k])
+    before_s = sum(t for t, _, _ in log[:k])
+    decoded = (sum(len(t) for t in res.tokens) - len(prompts)
+               - res.preemptions)
+    after_s = sum(t for t, _, _ in log[k:])
+    print(f"  {card}; anchor {sig}; {len(prompts)} requests, prompts "
+          f"{sorted(set(len(p) for p in prompts))}, max_new "
+          f"{sorted(set(max_new))}")
+    for ev, sec in zip(res.retunes, retune_s):
+        print(f"  retune @step {ev['step']} of {res.steps}: distance "
+              f"{ev['distance']:.4f} -> {ev['signature']} "
+              f"[{ev['warm_source']}], {ev['n_tests']} tests in {sec:.4f} s "
+              f"host, surrogate value {ev['value']:.2f}, measured accept "
+              f"{ev['measured_accept']:.4f} (spec_accept "
+              f"{ev['spec_accept']:.4f}); applied " + ", ".join(
+                  f"{kn} {a}->{b}" for kn, (a, b) in ev["applied"].items()))
+    print(f"  with retune: {res.steps} steps ({single} single-token), "
+          f"{res.prefill_chunks} prefill chunks, {res.preemptions} "
+          f"preemptions, {res.shared_prefix_tokens} shared tokens, drafted "
+          f"{res.drafted} accepted {res.accepted}; launches {launches}; "
+          f"decode {res.decode_tokens_per_sec:.2f} tok/s over the run; "
+          f"before the swap {before_tok} tokens in {before_s:.4f} s = "
+          f"{before_tok / max(before_s, 1e-9):.2f} tok/s, "
+          f"{before_s / max(k, 1) * 1e3:.4f} ms a step; after it "
+          f"{decoded - before_tok} tokens in {after_s:.4f} s = "
+          f"{(decoded - before_tok) / max(after_s, 1e-9):.2f} tok/s, "
+          f"{after_s / max(res.steps - k, 1) * 1e3:.4f} ms a step")
+    print(f"  without retune: {base.steps} steps, {base.prefill_chunks} "
+          f"prefill chunks, decode {base.decode_tokens_per_sec:.2f} tok/s; "
+          f"{same} of {len(prompts)} requests equal it; first divergences "
+          "(request, token, top-2 gap): "
+          + (", ".join(f"({i}, {j}, {g:.6f})" for i, j, g in diverged)
+             or "none") + f" (bar {bar:.6f})")
+    print(f"  phase 11: {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 8: Zamba2-1.2B's forward and LM loss at full width
 # ---------------------------------------------------------------------------
 def profile_forward(fn):
@@ -1855,15 +2196,6 @@ COTUNE_BUDGET = 8
 COTUNE_RETIMES = 5
 
 
-def gemma_param_count(cfg) -> int:
-    """Parameters of a tied attn stack: embedding, per layer the
-    attention projections, the gated MLP and two norms, the final norm."""
-    d, hd = cfg.d_model, cfg.head_dim_
-    attn = d * cfg.n_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2
-    mlp = 3 * d * cfg.d_ff
-    return cfg.padded_vocab * d + cfg.n_layers * (attn + mlp + 2 * d) + d
-
-
 def cotune_surrogate(tmp):
     """(a) ``launch.tune --joint`` on the analytic surrogate: its winners
     read back under the cost model's key, and nothing ran on the card."""
@@ -1918,13 +2250,13 @@ def cotune_live(card):
     cfg = replace(full, n_layers=COTUNE_LAYERS)
     gib = 1e9
     for c in (full, cfg):
-        n = gemma_param_count(c)
+        n = count_params(c)
         print(f"  train member at {c.n_layers} layers: {n / 1e9:.3f} B "
               f"params: bf16 params {2 * n / gib:.1f} GB + bf16 grads "
               f"{2 * n / gib:.1f} GB + f32 moments {8 * n / gib:.1f} GB = "
               f"{12 * n / gib:.1f} GB before activations and the update's "
               f"f32 temporaries")
-    serve_gb = 2 * gemma_param_count(cfg) / gib
+    serve_gb = 2 * count_params(cfg) / gib
     print(f"  serve member's model: {serve_gb:.1f} GB bf16")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2098,6 +2430,197 @@ def phase_cotune(card):
     return launched
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the fault-tolerant train loop with checkpoints
+# ---------------------------------------------------------------------------
+# Gemma-7B's width with the depth cut from 28 layers to TRAIN_LAYERS: at
+# 28 the bf16 params, f32 moments and the step's f32 gradients need about
+# 102.5 GB, more than the card's 80; at 2 the model has 1.34 B params
+TRAIN_LAYERS = 2
+TRAIN_STEPS = 6
+TRAIN_FAIL_AT = 3
+# the train step's parity bars (tests/test_torch_train.py): losses to
+# LOSS_TOL; the final params' distance from the uninterrupted run's, over
+# the uninterrupted run's update, to UPDATE_TOL; at most OFF_SHARE of the
+# elements more than lr/10 apart
+TRAIN_LOSS_TOL = dict(rtol=1e-4, atol=1e-6)
+TRAIN_UPDATE_TOL = 2e-2
+TRAIN_OFF_SHARE = 1e-3
+TRAIN_LR = 1e-3
+MEASURED_BUDGET = 4
+
+
+def leaf_crcs(tree) -> dict:
+    """{leaf name, as the checkpoint names it: CRC32 of the whole leaf's
+    bytes}, each leaf's bytes read from where it lies."""
+    import zlib
+
+    from repro_torch.checkpoint.manager import _flatten_with_names
+
+    return {name: zlib.crc32(leaf.detach().contiguous().reshape(-1)
+                             .view(torch.uint8).cpu().numpy())
+            for name, leaf in _flatten_with_names(tree)}
+
+
+def flat32(params) -> torch.Tensor:
+    return torch.cat([p.detach().float().reshape(-1)
+                      for p in _leaves(params)])
+
+
+def phase_train_loop(card):
+    """``train()`` at Gemma-7B's width (depth cut to TRAIN_LAYERS): a run
+    with async checkpoints every 2 steps is killed at step TRAIN_FAIL_AT,
+    resumes from its newest checkpoint (step 2) and finishes; it is held
+    to an uninterrupted run that writes no checkpoint.  Every restored
+    leaf's CRC32 must equal the CRC32 taken of that leaf when it was
+    saved, before the next step ran.  Then TorchMeasuredSUT on the same
+    model (8 x 128 tokens a step) under the tuner on the card."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.sut_torch import TorchMeasuredSUT
+    from repro_torch.core.tuner import Tuner
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.train import (SimulatedFailure, TrainLoopConfig,
+                                   loop as loop_mod, train)
+
+    t_phase = time.perf_counter()
+    cfg = replace(get_config("gemma-7b"), n_layers=TRAIN_LAYERS)
+    n = count_params(cfg)
+    emb = cfg.padded_vocab * cfg.d_model
+    print(f"  {card}; gemma-7b width at {TRAIN_LAYERS} of 28 layers: {n} "
+          f"params (embedding {emb}, {(n - emb - cfg.d_model) // 2} a "
+          f"layer): bf16 params {2 * n / 1e9:.2f} GB + f32 moments "
+          f"{8 * n / 1e9:.2f} GB = a {10 * n / 1e9:.2f} GB checkpoint")
+
+    def loop(**kw):
+        return TrainLoopConfig(
+            steps=TRAIN_STEPS, seq_len=128, global_batch=8, log_every=0,
+            opt=OptimizerConfig(learning_rate=TRAIN_LR, warmup_steps=0,
+                                schedule="constant"), **kw)
+
+    seen = {"saves": [], "writes": [], "restores": []}
+
+    class Recording(CheckpointManager):
+        """The loop's manager, recording each save's leaf CRCs (taken
+        before ``save`` returns, so before the next step runs), each
+        save's and restore's seconds, and each restored tree's CRCs."""
+
+        def save(self, step, tree, extra=None):
+            crcs = leaf_crcs(tree)
+            t = time.perf_counter()
+            super().save(step, tree, extra)
+            seen["saves"].append((step, crcs, time.perf_counter() - t))
+
+        def _save_sync(self, step, leaves, extra):
+            t = time.perf_counter()
+            super()._save_sync(step, leaves, extra)
+            seen["writes"].append((step, time.perf_counter() - t))
+
+        def restore(self, template, step=None, shardings=None):
+            t = time.perf_counter()
+            got, tree = super().restore(template, step, shardings)
+            seen["restores"].append((got, leaf_crcs(tree),
+                                     time.perf_counter() - t))
+            return got, tree
+
+    reset_counts()
+    straight = train(cfg, loop(), device=DEV)
+    want_losses = [h["loss"] for h in straight["history"]]
+    want = flat32(straight["params"])
+    step_s = [h["step_seconds"] for h in straight["history"]]
+    del straight
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="train_loop_") as ckpt:
+        kw = dict(ckpt_dir=ckpt, ckpt_every=2, ckpt_keep=1, ckpt_async=True)
+        loop_mod.CheckpointManager = Recording
+        try:
+            failed = False
+            try:
+                train(cfg, loop(fail_at_step=TRAIN_FAIL_AT, **kw),
+                      device=DEV)
+            except SimulatedFailure:
+                failed = True
+            check(failed, "train: no SimulatedFailure")
+            torch.cuda.empty_cache()
+            resumed = train(cfg, loop(**kw), device=DEV)
+        finally:
+            loop_mod.CheckpointManager = CheckpointManager
+        launches = counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        left = sorted(os.listdir(ckpt))
+        ckpt_bytes = sum(
+            os.path.getsize(os.path.join(ckpt, left[-1], f))
+            for f in os.listdir(os.path.join(ckpt, left[-1])))
+    check(left == [f"step_{TRAIN_STEPS:010d}"],
+          f"train: {left} left (keep 1, no .tmp)")
+    check(len(seen["restores"]) == 1 and seen["restores"][0][0] == 2,
+          f"train: restores {[r[0] for r in seen['restores']]}")
+    saved = {step: crcs for step, crcs, _ in seen["saves"]}
+    restored_crcs = seen["restores"][0][1]
+    bad = [k for k, v in restored_crcs.items() if saved[2].get(k) != v]
+    check(not bad and len(restored_crcs) == len(saved[2]),
+          f"train: {len(bad)} restored leaves differ from the step-2 save "
+          f"(e.g. {bad[:3]})")
+    got_losses = [h["loss"] for h in resumed["history"]]
+    check(len(got_losses) == TRAIN_STEPS - 2,
+          f"train: resumed ran {len(got_losses)} steps")
+    check(np.allclose(got_losses, want_losses[2:], **TRAIN_LOSS_TOL),
+          f"train: resumed losses {got_losses} vs uninterrupted "
+          f"{want_losses[2:]} ({TRAIN_LOSS_TOL})")
+    got = flat32(resumed["params"])
+    del resumed
+    torch.cuda.empty_cache()
+    p0 = flat32(Model(cfg, device=DEV).init(SEED))
+    update_err = float((got - want).norm() / (want - p0).norm())
+    off = float(((got - want).abs() > TRAIN_LR / 10).double().mean())
+    del got, want, p0
+    check(update_err <= TRAIN_UPDATE_TOL and off <= TRAIN_OFF_SHARE,
+          f"train: resumed params {update_err:.3e} of the update apart "
+          f"(bar {TRAIN_UPDATE_TOL}), {off:.3e} of elements apart (bar "
+          f"{TRAIN_OFF_SHARE})")
+    check(all(math.isfinite(x) for x in got_losses + want_losses),
+          "train: a loss is not finite")
+    print(f"  uninterrupted: losses {[round(x, 6) for x in want_losses]}; "
+          f"step seconds {[round(x, 4) for x in step_s]}")
+    print(f"  killed at step {TRAIN_FAIL_AT}, resumed from step 2: losses "
+          f"{[round(x, 6) for x in got_losses]}; final params "
+          f"{update_err:.3e} of the update apart, {off:.3e} of elements "
+          f"more than lr/10 apart; {len(restored_crcs)} restored leaves' "
+          f"CRC32 equal the step-2 save's; peak {peak_gb:.2f} GB; kernel "
+          f"launches {launches}")
+    print(f"  checkpoint {ckpt_bytes} bytes; save (host copy, blocking) "
+          + ", ".join(f"step {st}: {sec:.3f} s" for st, _, sec in
+                      seen["saves"])
+          + "; write (background) " + ", ".join(
+              f"step {st}: {sec:.3f} s" for st, sec in seen["writes"])
+          + f"; restore {seen['restores'][0][2]:.3f} s")
+
+    sut_seen = []
+
+    class RecordingSUT(TorchMeasuredSUT):
+        def test(self, config):
+            m = super().test(config)
+            sut_seen.append((config, m))
+            return m
+
+    torch.cuda.empty_cache()
+    sut = RecordingSUT(cfg, seq_len=128, global_batch=8, device=DEV)
+    report = Tuner(sut.space(), sut, budget=MEASURED_BUDGET,
+                   seed=SEED).run()
+    check(len(sut_seen) == MEASURED_BUDGET,
+          f"measured SUT: {len(sut_seen)} tests")
+    for config, m in sut_seen:
+        check(math.isfinite(m.value) and m.value > 0
+              and math.isfinite(m.metrics["loss"]),
+              f"measured SUT: {config} gave {m}")
+        print(f"  TorchMeasuredSUT {config}: {m.value:.2f} tok/s, "
+              f"{m.metrics['step_seconds'] * 1e3:.4f} ms a step, loss "
+              f"{m.metrics['loss']:.6f}")
+    print(f"  best {report.best_config} at {report.best_metric.value:.2f} "
+          f"tok/s; phase 12: {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke runs only on "
@@ -2110,9 +2633,9 @@ def main() -> int:
     t_start = time.perf_counter()
 
     def phase(n, what):
-        print(f"[{n}/10] ({time.perf_counter() - t_start:.1f} s) {what}")
+        print(f"[{n}/12] ({time.perf_counter() - t_start:.1f} s) {what}")
 
-    print(f"[1/10] device: {name}; torch {torch.__version__}, "
+    print(f"[1/12] device: {name}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(tmp, "cache.json")
@@ -2167,6 +2690,11 @@ def main() -> int:
                   "7's main path; before phase 8, on phase 5's model)")
             phase_knobs(model, params, prompts, max_new, res, logit_err,
                         card)
+            phase(11, "online retuning on gemma-7b at full width (slice "
+                  "9's main path; after phase 9, before phase 8)")
+            retuned = phase_retune(model, params, logit_err, card)
+            records["paged_flash_decode"]["retune_launches"] = retuned[
+                "paged_flash_decode"]
             del model, params
             torch.cuda.empty_cache()
             phase(8, "zamba2-1.2b forward and loss at full width "
@@ -2179,6 +2707,10 @@ def main() -> int:
             cotuned = phase_cotune(card)
             for name_ in ("paged_flash_decode", "flash_decode"):
                 records[name_]["cotune_launches"] = cotuned[name_]
+            torch.cuda.empty_cache()
+            phase(12, "the fault-tolerant train loop with async "
+                  "checkpoints at gemma-7b width (slice 9; last)")
+            phase_train_loop(card)
         except PhaseError as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1

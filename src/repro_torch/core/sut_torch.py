@@ -2,12 +2,14 @@
 
 Counterpart of the live half of ``repro.core.sut_jax``: the shared
 wall-clock methodology of the live (``--joint --real``) co-tuning path
-(``median_wall_clock``) and the real train step as a system under tune
-(``TrainStepSUT``).  Applying a configuration rebuilds the model, its
-optimizer state and the step under the new knobs — the paper's
-apply-config-and-restart — and runs the workload on the device.  The
-reference's dry-run system-under-tune (``JaxDryRunSUT``, ``knob_space``)
-comes with ROADMAP queue 1: dry-run and roofline.
+(``median_wall_clock``), the real train step as a system under tune
+(``TrainStepSUT``) and the reference's measured steps-per-second system
+(``TorchMeasuredSUT``, the counterpart of ``JaxMeasuredSUT``).  Applying
+a configuration rebuilds the model, its optimizer state and the step
+under the new knobs — the paper's apply-config-and-restart — and runs the
+workload on the device.  The reference's dry-run system-under-tune
+(``JaxDryRunSUT``, ``knob_space``) comes with ROADMAP queue 1: dry-run
+and roofline.
 """
 from __future__ import annotations
 
@@ -16,10 +18,11 @@ from typing import Union
 
 import torch
 
-from repro_torch.core.params import Config, ParameterSpace
+from repro_torch.core.params import (BoolParam, Config, EnumParam,
+                                     ParameterSpace)
 from repro_torch.core.tuner import PerfMetric
 
-__all__ = ["TrainStepSUT", "median_wall_clock", "sync"]
+__all__ = ["TrainStepSUT", "TorchMeasuredSUT", "median_wall_clock", "sync"]
 
 
 def sync(device: Union[str, torch.device]) -> None:
@@ -142,3 +145,67 @@ class TrainStepSUT:
             metrics={"step_seconds": sec, "tokens_per_sec": tput,
                      "loss": float(state["m"]["loss"]),
                      "warmup": self.warmup, "repeats": self.repeats})
+
+
+class TorchMeasuredSUT:
+    """Real measured tuning: config -> training tokens/sec on ``device``.
+
+    The paper's loop (apply config, restart the system, run the workload,
+    measure) end to end, over the reference's space: ``remat``,
+    ``microbatches``, ``loss_chunk``, ``donate`` and ``scan_unroll``.
+    The last two stay in the space, inert (the eager step reads neither),
+    so the tuner draws the reference's trial stream.  Each test builds
+    the model and state, runs ``warmup`` untimed steps (kernel builds
+    included) and times ``steps`` steps, each span ended by a device
+    sync.
+    """
+
+    def __init__(self, cfg, seq_len: int = 128, global_batch: int = 8,
+                 steps: int = 6, warmup: int = 2, seed: int = 0,
+                 device: Union[str, torch.device] = "cuda"):
+        from repro_torch.models.common import resolve_device
+
+        self.cfg = cfg
+        self.seq_len = seq_len
+        self.global_batch = global_batch
+        self.steps = steps
+        self.warmup = warmup
+        self.seed = seed
+        self.device = resolve_device(device)
+        self.name = f"torch-measured[{cfg.name}]"
+
+    def space(self) -> ParameterSpace:
+        return ParameterSpace([
+            EnumParam("remat", ("full", "dots", "none"), "full"),
+            EnumParam("microbatches", (1, 2, 4), 1),
+            EnumParam("loss_chunk", (0, 32, 64), 0),
+            BoolParam("donate", True),
+            EnumParam("scan_unroll", (1, 2), 1),
+        ])
+
+    def test(self, config: Config) -> PerfMetric:
+        from repro_torch.train.step import RunKnobs
+
+        knobs = RunKnobs(
+            remat=config["remat"], microbatches=config["microbatches"],
+            loss_chunk=config["loss_chunk"], donate=config["donate"],
+            scan_unroll=config["scan_unroll"], rules_preset="dp")
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()  # the last test's state is gone
+        step_fn, params, opt_state, batches = _measured_train_setup(
+            self.cfg, knobs, self.seq_len, self.global_batch,
+            self.warmup + self.steps, self.seed, self.device)
+        m = None
+        for i in range(self.warmup):
+            params, opt_state, m = step_fn(params, opt_state, batches[i])
+        sync(self.device)
+        t0 = time.perf_counter()
+        for i in range(self.warmup, self.warmup + self.steps):
+            params, opt_state, m = step_fn(params, opt_state, batches[i])
+        sync(self.device)
+        dt = (time.perf_counter() - t0) / self.steps
+        tput = self.seq_len * self.global_batch / dt
+        return PerfMetric(value=tput, higher_is_better=True,
+                          metrics={"step_seconds": dt,
+                                   "tokens_per_sec": tput,
+                                   "loss": float(m["loss"])})

@@ -40,7 +40,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (dtype_of, normal_init, ones_init,
                                        resolve_device, rms_norm)
 
-__all__ = ["Model"]
+__all__ = ["Model", "count_params"]
 
 KINDS = ("attn", "mamba2", "shared")
 
@@ -141,6 +141,27 @@ def _stack_decode(blocks_params: List[Dict[str, Any]],
     for p, c in zip(blocks_params, blocks_cache):
         x = _apply_block_decode(p, x, c, ctx, cfg)
     return x
+
+
+def count_params(cfg: ModelConfig) -> int:
+    """Parameters of the model ``cfg`` describes, counted from the shapes
+    ``Model.init`` makes (no tensor is made): the padded embedding, each
+    layer's weights and norms, the final norm and the one shared block."""
+    def size(defs) -> int:
+        return sum(math.prod(shape) for shape, *_ in defs.values())
+
+    d = cfg.d_model
+    attn_block = (size(attn_mod.attention_defs(cfg))
+                  + size(mlp_mod.mlp_defs(cfg)) + 2 * d)
+    per_kind = {"attn": attn_block, "shared": 0,
+                "mamba2": (size(ssm_mod.mamba2_defs(cfg)) + d
+                           if "mamba2" in cfg.superblock else 0)}
+    n = cfg.padded_vocab * d + d
+    n += sum(per_kind[cfg.superblock[i % len(cfg.superblock)]]
+             for i in range(cfg.n_layers))
+    if "shared" in cfg.superblock:
+        n += attn_block
+    return n
 
 
 class Model:

@@ -23,14 +23,19 @@ knobs ``serve_knob_space`` sweeps all act here:
   decode would sample is accepted;
 * ``temperature``: sampling keyed on (seed, request id, token index).
 
-None of them changes a greedy token.  With ``autotune_kernels`` the
+None of them changes a greedy token.  With ``retune`` the engine
+fingerprints its live request window (``serve.workload``), and when the
+mix drifts from the signature its knobs were tuned under it re-tunes
+them on the serve surrogate and swaps the winner into the running loop
+at a step boundary: ``max_batch`` (the admission cap), ``schedule``,
+``page_policy``, ``prefill_chunk``, ``draft_len`` and ``share_prefix``.  With ``autotune_kernels`` the
 engine tunes (or loads from the autotune cache) the launch configs of its
 kernel shapes on its own device and adopts the paged kernel's tuned
 ``pages_per_block`` as the pool's group size.
 
 ``ServeConfig`` keeps every field and default of the reference so configs
 carry over; a knob whose path is not ported yet (the dense layout, the
-wave runtime, online retuning, meshes) raises ``NotImplementedError``
+wave runtime, meshes) raises ``NotImplementedError``
 naming its ROADMAP item when the engine is built (it is never silently
 ignored).  The engine runs on ``device``; the default ``"cuda"`` raises
 without a card.
@@ -149,6 +154,12 @@ class ServeConfig:
                 1 <= self.slot_cap <= self.batch_slots):
             raise ValueError(f"slot_cap must be in [1, batch_slots="
                              f"{self.batch_slots}]; got {self.slot_cap}")
+        for knob in ("retune_budget", "retune_window", "retune_cooldown",
+                     "retune_check_every", "retune_min_requests"):
+            if getattr(self, knob) < 1:
+                raise ValueError(f"{knob} must be >= 1")
+        if self.retune_threshold < 0:
+            raise ValueError("retune_threshold must be >= 0")
         paged = self.runtime == "continuous" and self.kv_layout == "paged"
         needed = self.batch_slots * self.max_seq
         # remember auto-sizing: pool sizing re-derives full residency
@@ -187,8 +198,6 @@ _UNPORTED = (
     ("kv_layout", lambda c: c.kv_layout != "paged",
      "the dense KV layout (ROADMAP queue 1: dense layout and wave "
      "runtime)"),
-    ("retune", lambda c: c.retune,
-     "online retuning (ROADMAP queue 1: online retuning)"),
     ("mesh_shape", lambda c: c.mesh_shape is not None,
      "multi-device serving (ROADMAP queue 1: multi-device)"),
 )
@@ -223,6 +232,11 @@ class GenerationResult:
     cow_splits: int = 0
     drafted: int = 0
     accepted: int = 0
+    # online retune events (cfg.retune): one dict per swap, {"step",
+    # "distance", "signature", "fingerprint", "config", "value",
+    # "n_tests", "warm_source", "spec_accept", "measured_accept",
+    # "applied": {knob: (old, new)}}
+    retunes: List[Dict[str, Any]] = field(default_factory=list)
 
     @property
     def acceptance_rate(self) -> float:
@@ -272,6 +286,8 @@ class ServeEngine:
         # tuned launch configs for this engine's kernel shapes (filled when
         # cfg.autotune_kernels; consulted implicitly by kernels.ops)
         self.kernel_blocks: Dict[str, Dict[str, Any]] = {}
+        # the last generation's OnlineRetuner (cfg.retune), else None
+        self.last_retuner = None
         mcfg = model.cfg
         if cfg.autotune_kernels:
             # The reference's quirk, kept: the engine tunes the dense
@@ -325,6 +341,52 @@ class ServeEngine:
                                    self.max_groups + 1)
         # the config reports the pool actually allocated
         cfg.kv_cache_pages = self.pool_groups * ppb
+
+    def _make_retuner(self):
+        """The online workload-aware retuner for this engine (cfg.retune).
+
+        It optimises over the same ``serve_knob_space`` the offline joint
+        mode tunes, with ``kv_cache_pages`` frozen to the pool actually
+        allocated, and keys its cache entries by the shape signature
+        ``launch.tune --joint`` uses and by this engine's device, so
+        online and offline winners on one backend transfer both ways
+        through nearest-signature lookup."""
+        from repro_torch.autotune import mesh_sig
+
+        from .space import CotuneParams, serve_knob_space
+        from .workload import OnlineRetuner
+
+        cfg, mcfg = self.cfg, self.model.cfg
+        B = cfg.batch_slots
+        base_params = CotuneParams.from_model(mcfg, max_seq=cfg.max_seq)
+        # clamp the allocated pool into the knob's range (the space uses
+        # the same page_per_seq arithmetic) so the frozen value validates
+        lo = max(1, cfg.max_seq // PAGE_TOKENS)
+        pages = min(max(cfg.kv_cache_pages, lo), B * lo)
+        space = serve_knob_space(cfg.max_seq, max_slots=B).freeze(
+            {"kv_cache_pages": pages})
+        active = {
+            "max_batch": min(cfg.slot_cap or B, B),
+            "prefill_chunk": cfg.prefill_chunk,
+            "kv_cache_pages": pages,
+            "schedule": cfg.schedule,
+            "page_policy": cfg.page_policy,
+            "share_prefix": int(bool(cfg.share_prefix)),
+            "draft_len": cfg.draft_len,
+        }
+        # the dims launch.tune keys serve winners under (n_heads: the
+        # port has no head padding)
+        sig_dims = {"S": cfg.max_seq, "H": mcfg.n_heads,
+                    "KV": mcfg.n_kv_heads, "D": mcfg.head_dim_}
+        return OnlineRetuner(
+            space, base_params, baseline=cfg.tuned_signature,
+            budget=cfg.retune_budget, threshold=cfg.retune_threshold,
+            min_requests=cfg.retune_min_requests,
+            cooldown=cfg.retune_cooldown,
+            check_every=cfg.retune_check_every, seed=cfg.seed,
+            active_config=active, sig_dims=sig_dims,
+            dtype=mcfg.compute_dtype, mesh=mesh_sig(None),
+            device=self.device)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -465,14 +527,28 @@ class ServeEngine:
         alloc = PageAllocator(self.pool_groups * self.group_pages,
                               PAGE_TOKENS, self.group_pages)
         page_tables = np.zeros((B, self.max_groups), np.int32)
-        prefix = PrefixIndex(alloc) if cfg.share_prefix else None
+        # with retuning the registry is kept warm even while sharing is
+        # off, so a mid-run swap to share_prefix has resident prompts to
+        # match (matching is gated on the live cfg.share_prefix)
+        prefix = (PrefixIndex(alloc) if cfg.share_prefix or cfg.retune
+                  else None)
         # on_demand reservations need the decode extend path until they
-        # drain (the reference latches this; only its retuner, not
-        # ported, switches the policy mid-run)
+        # drain, also after a retune swaps the policy back to reserve: the
+        # latch only ever sets
         ever_on_demand = sched.on_demand
         cache = self._init_continuous_cache()
-        # admission cap: only slots below it admit
+        # admission cap (the retuner's max_batch knob): only slots below
+        # it admit, so the dispatch shapes never change
         slot_cap = min(cfg.slot_cap or B, B)
+        window = retuner = None
+        retunes: List[Dict[str, Any]] = []
+        seen_rids: set = set()
+        if cfg.retune:
+            from .workload import WorkloadWindow
+
+            window = WorkloadWindow(capacity=cfg.retune_window)
+            retuner = self._make_retuner()
+        self.last_retuner = retuner
 
         # host-side slot state
         slot_req: List[Optional[Request]] = [None] * B
@@ -573,8 +649,10 @@ class ServeEngine:
             (+ carried tokens), capped one token short of the whole so at
             least one token runs through prefill (its logits seed
             sampling); ``cow`` when the first write lands inside the last
-            shared group, which must then be split."""
-            if prefix is None:
+            shared group, which must then be split.  Gated on the live
+            ``cfg.share_prefix`` (a retune knob): with sharing off the
+            registry still registers but never matches."""
+            if prefix is None or not cfg.share_prefix:
                 return [], 0, False
             toks = list(r.prompt) + list(r.generated)
             gids, covered = prefix.match(toks)
@@ -692,6 +770,46 @@ class ServeEngine:
             steps += 1
             return toks
 
+        def apply_knobs(knob_cfg: Dict[str, Any]) -> Dict[str, Any]:
+            """Swap a retuned winner into the running loop at this step
+            boundary: no drain, and no change of the dispatch shapes
+            (``max_batch`` caps admission; the slot count is fixed).  No
+            greedy token can change: every knob here is token-invariant.
+            Updates ``self.cfg`` in place, as the reference does.  Returns
+            {knob: (old, new)} for the knobs that moved."""
+            nonlocal slot_cap, ever_on_demand
+            applied: Dict[str, Any] = {}
+            new_cap = min(int(knob_cfg["max_batch"]), B)
+            if new_cap != slot_cap:
+                applied["max_batch"] = (slot_cap, new_cap)
+                slot_cap = new_cap
+            new_sched = str(knob_cfg["schedule"])
+            if new_sched != cfg.schedule:
+                applied["schedule"] = (cfg.schedule, new_sched)
+                sched.set_policy(new_sched)  # re-sorts pending
+                cfg.schedule = new_sched
+            new_pp = str(knob_cfg.get("page_policy", cfg.page_policy))
+            if new_pp != cfg.page_policy:
+                applied["page_policy"] = (cfg.page_policy, new_pp)
+                sched.set_page_policy(new_pp)
+                cfg.page_policy = new_pp
+                if new_pp == "on_demand":
+                    ever_on_demand = True
+            new_chunk = int(knob_cfg["prefill_chunk"])
+            if new_chunk != cfg.prefill_chunk:
+                applied["prefill_chunk"] = (cfg.prefill_chunk, new_chunk)
+                cfg.prefill_chunk = new_chunk
+            new_draft = int(knob_cfg.get("draft_len", cfg.draft_len))
+            if new_draft != cfg.draft_len:
+                applied["draft_len"] = (cfg.draft_len, new_draft)
+                cfg.draft_len = new_draft
+            new_share = bool(int(knob_cfg.get(
+                "share_prefix", int(cfg.share_prefix))))
+            if new_share != cfg.share_prefix:
+                applied["share_prefix"] = (cfg.share_prefix, new_share)
+                cfg.share_prefix = new_share
+            return applied
+
         def loop() -> None:
             nonlocal shared_total, drafted, accepted
             while sched.has_pending or any(r is not None for r in slot_req):
@@ -706,6 +824,10 @@ class ServeEngine:
                     if admitted is None:
                         break  # pool full: wait for a release
                     head, groups, covered = admitted
+                    if window is not None and head.rid not in seen_rids:
+                        seen_rids.add(head.rid)  # re-admissions don't
+                        window.record_request(steps, head.prompt,
+                                              head.max_new)
                     page_tables[b, :] = PageAllocator.SCRATCH_GROUP
                     page_tables[b, :len(groups)] = groups
                     if covered:
@@ -729,12 +851,19 @@ class ServeEngine:
                     if not sched.interleave_prefill:
                         while slot_chunks[b] and slot_req[b] is not None:
                             run_chunk(b)
-                # 2. under interleave, one pending prefill chunk a slot a
-                # step (the other schedules drained theirs at admission)
+                # 2. pending prefill chunks: one a slot a step under
+                # interleave, drained back to back otherwise (reached only
+                # after a retune swaps the policy away from interleave
+                # mid-prefill: admission drains the other schedules)
                 for b in range(B):
-                    if slot_req[b] is not None and slot_chunks[b]:
+                    if slot_req[b] is None or not slot_chunks[b]:
+                        continue
+                    if sched.interleave_prefill:
                         run_chunk(b)
-                        progressed = True
+                    else:
+                        while slot_chunks[b] and slot_req[b] is not None:
+                            run_chunk(b)
+                    progressed = True
                 # 3. one batched decode step over every decoding slot: with
                 # speculation, draft_len extra n-gram columns ride the same
                 # dispatch; under on_demand, first grow reservations to
@@ -778,6 +907,7 @@ class ServeEngine:
                     for b in active:
                         d = drafts.get(b, [])
                         drafted += len(d)
+                        acc_b = 0
                         # column 0 is the ordinary sampled token (always
                         # accepted); column i+1 is valid only if draft
                         # token d[i] matched the token sampled at column i
@@ -789,17 +919,41 @@ class ServeEngine:
                             accept_token(b, tok)
                             if i > 0:
                                 accepted += 1
+                                acc_b += 1
                             if slot_req[b] is None:
                                 break  # finished mid-chain
                             if i >= len(d) or tok != d[i]:
                                 break
+                        if window is not None and d:
+                            window.record_draft(len(d), acc_b)
                 elif active:
                     toks = dispatch(next_tok[:, None], active)
                     progressed = True
                     for b in active:
                         lengths[b] += 1  # the fed token is now resident
                         first_tok_t.setdefault(slot_req[b].rid, time.time())
-                        accept_token(b, int(toks[b, 0]))
+                        tok = int(toks[b, 0])
+                        if window is not None:
+                            # shadow probe: would a 1-token n-gram draft
+                            # have been accepted?  It measures acceptance
+                            # while draft_len=0, so the retuner can turn
+                            # speculation on, not only off
+                            pred = self._ngram_draft(
+                                _tail_history(slot_req[b].prompt,
+                                              slot_out[b],
+                                              cfg.draft_window), 1)
+                            if pred:
+                                window.record_draft(
+                                    1, 1 if pred[0] == tok else 0)
+                        accept_token(b, tok)
+                if window is not None:
+                    window.record_depth(
+                        sched.queue_depth
+                        + sum(1 for r in slot_req if r is not None))
+                    hit = retuner.maybe_retune(window, steps)
+                    if hit is not None:
+                        hit["applied"] = apply_knobs(hit["config"])
+                        retunes.append(hit)
                 if not progressed:  # defensive: cannot happen (paging.py)
                     raise RuntimeError(
                         "continuous scheduler stalled: pending requests "
@@ -820,7 +974,8 @@ class ServeEngine:
             [list(t) for t in results], prefill_s, decode_s, steps,
             chunks_issued, [dict(r) for r in per_request],
             preemptions=preemptions, shared_prefix_tokens=shared_total,
-            cow_splits=cow_splits, drafted=drafted, accepted=accepted)
+            cow_splits=cow_splits, drafted=drafted, accepted=accepted,
+            retunes=retunes)
 
 
 def _to_device(tree, device: torch.device):

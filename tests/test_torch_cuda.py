@@ -755,3 +755,109 @@ def test_train_step_on_card_matches_cpu(card, remat, microbatches):
     assert abs(losses["cuda"][0] - losses["cpu"][0]) <= 1e-5
     for a, b in zip(losses["cuda"], losses["cpu"]):
         assert abs(a - b) <= 1e-3 * abs(b)
+
+
+def _drift_workload(seed=0):
+    """``tests/test_workload_retune.py``'s drifting trace: distinct long
+    prompts, then a shared prefix with short tails and short gens."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pa_ = [rng.integers(1, 500, size=20).tolist() for _ in range(3)]
+    shared = rng.integers(1, 500, size=32).tolist()
+    pb = [shared + rng.integers(1, 500, size=3).tolist()
+          for _ in range(12)]
+    return pa_ + pb, [12] * 3 + [6] * 12
+
+
+RETUNE_KW = dict(retune=True, retune_budget=8, retune_threshold=0.3,
+                 retune_window=10, retune_cooldown=200,
+                 retune_check_every=2, retune_min_requests=6,
+                 tuned_signature="a0.43_d5_g12_p20_r0.00_s0.00_x0.00")
+EVENT_KEYS = ("step", "signature", "config", "applied", "warm_source")
+
+
+@pytest.mark.cuda
+def test_engine_retune_on_card_matches_cpu(card, tmp_path, monkeypatch):
+    """The drifting trace under retune on the card gives the CPU's tokens,
+    counts and retune events (the winner keyed ``cuda-sm90`` there,
+    ``model-sm90`` here), and the paged kernel runs n_layers times a
+    single-token step (none on the verify steps the swap turns on)."""
+    import json
+
+    params = Model(TINY_F32, device="cpu").init(0)
+    scfg = ServeConfig(max_seq=48, batch_slots=8, kv_layout="paged",
+                       prefill_chunk=8, slot_cap=3, **RETUNE_KW)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / dev))
+        autotune.reset_default_cache()
+        eng = ServeEngine(Model(TINY_F32, device=dev), params, scfg,
+                          device=dev)
+        before = pa.paged_flash_decode_cuda.launches
+        res = eng.generate(*_drift_workload())
+        launched = pa.paged_flash_decode_cuda.launches - before
+        eng.last_alloc.check_balanced()
+        out[dev] = (res.tokens, res.steps, res.prefill_chunks,
+                    res.drafted, res.accepted,
+                    [{k: e[k] for k in EVENT_KEYS} for e in res.retunes])
+        keys = list(json.loads((tmp_path / dev).read_text()))
+    autotune.reset_default_cache()
+    assert out["cuda"] == out["cpu"]
+    assert len(res.retunes) == 1 and res.retunes[0]["applied"]
+    assert all("|cuda-sm90|" in k for k in keys)
+    assert launched >= TINY_F32.n_layers  # single-token steps before it
+
+
+@pytest.mark.cuda
+def test_checkpoint_async_save_on_card(card, tmp_path):
+    """A tree on the card (bf16 and f32) saved asynchronously, then
+    updated in place: the restore onto a card template is the state at
+    the save, bit for bit, on the card."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tree = {"p": torch.randn((64, 32), generator=g, device="cuda").to(
+        torch.bfloat16),
+        "mu": [torch.randn((1000,), generator=g, device="cuda")],
+        "step": torch.tensor(3, dtype=torch.int32, device="cuda")}
+    at_save = {"p": tree["p"].clone(), "mu": tree["mu"][0].clone()}
+    mgr = CheckpointManager(str(tmp_path), async_save=True)
+    mgr.save(1, tree)
+    tree["mu"][0].mul_(0.5)
+    tree["p"].add_(1)
+    _, restored = mgr.restore(tree)
+    assert restored["p"].device.type == "cuda"
+    assert restored["p"].dtype == torch.bfloat16
+    assert torch.equal(restored["p"], at_save["p"])
+    assert torch.equal(restored["mu"][0], at_save["mu"])
+    assert int(restored["step"]) == 3
+
+
+@pytest.mark.cuda
+def test_train_loop_resume_on_card(card, tmp_path):
+    """A run killed by SimulatedFailure resumes on the card from its async
+    checkpoint to the uninterrupted run's losses."""
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.train import (RunKnobs, SimulatedFailure,
+                                   TrainLoopConfig, train)
+
+    def loop(**kw):
+        return TrainLoopConfig(**dict(dict(
+            steps=6, seq_len=32, global_batch=4, log_every=0,
+            opt=OptimizerConfig(learning_rate=3e-3, warmup_steps=2,
+                                total_steps=50),
+            knobs=RunKnobs(rules_preset="dp", remat="none", microbatches=1,
+                           loss_chunk=0)), **kw))
+
+    straight = train(TINY_F32, loop())
+    ckpt = str(tmp_path / "ckpt")
+    with pytest.raises(SimulatedFailure):
+        train(TINY_F32, loop(ckpt_dir=ckpt, ckpt_every=2, ckpt_async=True,
+                             fail_at_step=3))
+    resumed = train(TINY_F32, loop(ckpt_dir=ckpt, ckpt_every=2,
+                                   ckpt_async=True))
+    assert resumed["final_step"] == 6 and len(resumed["history"]) == 4
+    for a, b in zip(straight["history"][2:], resumed["history"]):
+        assert abs(a["loss"] - b["loss"]) <= 1e-4 * abs(a["loss"])
+    assert resumed["params"]["embed"].device.type == "cuda"

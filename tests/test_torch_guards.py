@@ -170,7 +170,6 @@ def test_cotune_entry_points_default_to_the_card(no_cuda):
 @pytest.mark.parametrize("knob", [
     dict(kv_layout="dense"),
     dict(runtime="wave"),
-    dict(retune=True),
     dict(mesh_shape=(1, 2)),
 ], ids=lambda k: "-".join(f"{a}={b}" for a, b in k.items()))
 def test_unported_knob_raises(knob):
@@ -188,6 +187,7 @@ def test_unported_knob_raises(knob):
     dict(page_policy="on_demand"),
     dict(share_prefix=True),
     dict(draft_len=2),
+    dict(retune=True, retune_min_requests=1, retune_check_every=1),
 ], ids=lambda k: "-".join(f"{a}={b}" for a, b in k.items()))
 def test_ported_knob_builds_and_generates(knob):
     """The knobs the live co-tuner sweeps build an engine on the CPU,
