@@ -147,9 +147,45 @@ Phases (each failure exits non-zero):
               model at 8 x 128 tokens a step under the tuner (budget 4):
               every trial's tokens/s and loss finite.
 
+13. dense   - (runs after phase 11, before phase 8, on phase 5's model)
+              Gemma-7B at full width in bf16: (a) phase 5's requests and
+              engine config on the dense layout: no paged launch, phase
+              5's steps and chunk counts, tokens against phase 5's under
+              phase 9's divergence rule; records the dense cache's bytes,
+              peak memory, decode tok/s and a profiled dense decode step
+              (device busy, idle share, ms in the dense attention).  (b)
+              the wave runtime, 8 prompts of 512 tokens, max_new 32,
+              attn_impl="pallas": the flash kernel launches n_layers times
+              a wave (whole-prompt prefill) and never in decode; its first
+              call, captured during the run, is launched again on its
+              inputs (bit for bit equal) and held to the plain version
+              within TOL and FLASH_REL_TOL; tokens against the same wave
+              under attn_impl="auto" by the divergence rule.  (c) that
+              wave at prefill_chunk 128: 4 chunks and no flash launch,
+              tokens against (b).  (d) that wave with autotune_kernels on
+              phase 6's cache: flash at (B=8, S=SK=512) and both RMSNorm
+              shapes read back under ``cuda-sm90``, and every flash call
+              of the wave runs the winner's tiles.  (Main path of port
+              slice 10.)
+14. zamba2  - (runs after phase 8, on its model) Zamba2-1.2B at full
+    serve     width in bf16 with attn_impl="pallas",
+              ServeConfig(max_seq=1024, batch_slots=4, kv_layout="paged"):
+              no continuous support, so the reference's wave fallback
+              serves 8 prompts of 512 tokens (max_new 32) in 2 waves over
+              dense caches whose pages cover batch_slots x max_seq; the
+              flash kernel launches once a shared-block invocation (2 a
+              wave) at H=32, D=64, one whole-prompt prefill a wave, no
+              GLA launch (the reference's prefill scans with the plain
+              chunked GLA); the captured flash call is held to the plain
+              version; tokens against attn_impl="blocked" by the
+              divergence rule (its bar from Zamba2's own decode-path vs
+              prefill-path logits); f32 at one superblock's depth, card
+              against CPU, by the same rule.  Records: prefill s, decode
+              tok/s, peak, a profiled decode step.
+
 Launch counts are set to 0 just before each main path (phases 5, 6, 7, 8,
-each run of 9, phase 10's live run, phase 11's retune run and phase 12's
-train runs) and read just after.  The autotune
+each run of 9, phase 10's live run, phase 11's retune run, phase 12's
+train runs and each run of 13 and 14) and read just after.  The autotune
 cache of the whole run is a temporary file (REPRO_AUTOTUNE_CACHE); nothing
 is written to the user's cache.  The line before the last is the card
 line; the line before it the ``{"kernels": [...]}`` line; the last line
@@ -188,6 +224,7 @@ from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels.ref import attention_ref, rmsnorm_ref  # noqa: E402
 from repro_torch.models import Model, count_params  # noqa: E402
 from repro_torch.models.gla import chunked_gla  # noqa: E402
+from repro_torch.optim import tree_map  # noqa: E402
 from repro_torch.serve import ServeConfig, ServeEngine  # noqa: E402
 
 SEED = 0
@@ -770,6 +807,8 @@ def kernels_flash():
         (1, 300, 500, 16, 16, 256, True, 0, 200, None, None),  # Gemma width
         gemma,                                         # train_4k, defaults
         ZAMBA_FLASH,                                   # Zamba2 shared block
+        GEMMA_WAVE_FLASH,                              # phase 13's wave
+        ZAMBA_WAVE_FLASH,                              # phase 14's wave
     ]
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -786,7 +825,8 @@ def kernels_flash():
                                                f"flash_attention {shape}")
             line = (f"  flash_attention {shape[:9]} {str(dtype)[6:]}: max "
                     f"abs err {err:.3e} (tol {TOL[dtype]})")
-            if shape in (gemma, ZAMBA_FLASH):
+            if shape in (gemma, ZAMBA_FLASH, GEMMA_WAVE_FLASH,
+                         ZAMBA_WAVE_FLASH):
                 rel = (rel_err(got, want),
                        rel_err(got[:, -64:], want[:, -64:]))
                 check(max(rel) <= FLASH_REL_TOL[dtype],
@@ -801,13 +841,31 @@ def kernels_flash():
     flash_timing(g, "zamba2 shared block", ZAMBA_FLASH)
     print(f"  zamba2 shared block bf16: max abs err "
           f"{errs[(ZAMBA_FLASH, torch.bfloat16)]:.3e}")
+    # serve prefill: the wave shapes phases 13 and 14 give the kernel
+    waves = {}
+    for what, shape in (("gemma wave prefill", GEMMA_WAVE_FLASH),
+                        ("zamba2 wave prefill", ZAMBA_WAVE_FLASH)):
+        w_ms, w_plain, w_bound, w_lib, w_dev, w_lib_dev = flash_timing(
+            g, what, shape)
+        waves[what.replace(" ", "_")] = {
+            "shape": list(shape[:6]),
+            "max_abs_err": errs[(shape, torch.bfloat16)], "ms": w_ms,
+            "device_ms": w_dev, "plain_ms": w_plain, "bound_ms": w_bound[0],
+            "bound_by": w_bound[1], "library_ms": w_lib,
+            "library_device_ms": w_lib_dev}
     ms, plain_ms, bound, lib_ms, dev_ms, lib_dev_ms = timed
-    return record("flash_attention", errs[(gemma, torch.bfloat16)], ms,
-                  plain_ms, bound, lib_ms, dev_ms, lib_dev_ms)
+    rec = record("flash_attention", errs[(gemma, torch.bfloat16)], ms,
+                 plain_ms, bound, lib_ms, dev_ms, lib_dev_ms)
+    rec["serve_prefill"] = waves
+    return rec
 
 
 # B, S, SK, H, KV, D, causal, window, q_offset, block_q, block_kv
 ZAMBA_FLASH = (1, 4096, 4096, 32, 32, 64, True, 0, 0, None, None)
+# whole-prompt wave prefill at 512-token prompts: Gemma-7B on 8 slots
+# (phase 13), Zamba2-1.2B's shared block on 4 (phase 14)
+GEMMA_WAVE_FLASH = (8, 512, 512, 16, 16, 256, True, 0, 0, None, None)
+ZAMBA_WAVE_FLASH = (4, 512, 512, 32, 32, 64, True, 0, 0, None, None)
 
 
 # phase 10's live kernel member: B=8 slots over a 128-token window at
@@ -1384,14 +1442,88 @@ def logit_consistency(model, params, prompt, generated):
             float((a - b).abs().max()))
 
 
-def profile_decode_step(model, params, lengths, steps=5, columns=1):
-    """Where one batched decode step's time goes, at the cell's shape:
-    host wall time per step without the profiler, then device time per
-    kernel under ``torch.profiler``; the idle share is the part of the
-    unprofiled step during which no kernel ran.  ``columns`` > 1 profiles
-    a verify step of that many tokens a slot."""
-    from torch.profiler import ProfilerActivity, profile
+def profile_step(step, what, annotate=(), steps=5):
+    """Where one call of ``step`` goes on the card: host wall ms a call
+    without the profiler, then device ms a call per kernel under
+    ``torch.profiler`` and the idle share (the part of the unprofiled
+    call during which no kernel ran).  ``annotate`` names functions of
+    ``repro_torch.models.attention`` to wrap in ``record_function`` while
+    profiling: each one's device ms a call is reported too.  Returns
+    {kernel: device ms a call}, or None where the profiler saw no device
+    events."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    from repro_torch.models import attention as attn_mod
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) / steps * 1e3
+    real = {name: getattr(attn_mod, name) for name in annotate}
+
+    def wrap(name, fn):
+        def annotated(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return annotated
+
+    for name, fn in real.items():
+        setattr(attn_mod, name, wrap(name, fn))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+    finally:
+        for name, fn in real.items():
+            setattr(attn_mod, name, fn)
+    # An annotation appears twice: on the host, with the device time of
+    # the kernels it launched, and on the device timeline as a span of
+    # its own, which is no kernel and must not count as busy time.  The
+    # span is reported where the trace has it, else the kernels' sum.
+    kernels, spans, launched = {}, {}, {}
+    for e in prof.key_averages():
+        on_card = e.device_type == torch.autograd.DeviceType.CUDA
+        if e.key in real:
+            if on_card:
+                spans[e.key] = e.self_device_time_total / 1e3 / steps
+            else:
+                launched[e.key] = getattr(
+                    e, "device_time_total",
+                    getattr(e, "cuda_time_total", 0.0)) / 1e3 / steps
+            continue
+        dt = getattr(e, "self_device_time_total", 0.0)
+        if on_card and dt > 0:
+            kernels[e.key] = kernels.get(e.key, 0.0) + dt / 1e3 / steps
+    spans = {k: spans.get(k, launched.get(k, 0.0))
+             for k in set(spans) | set(launched)}
+    busy = sum(kernels.values())
+    print(f"  {what}: {wall_ms:.4f} ms wall (no profiler)")
+    if not kernels:
+        print("  device time per kernel: not measured (the profiler saw "
+              "no device events)")
+        return None
+    check(busy <= wall_ms, f"{what}: profiled device time {busy:.4f} ms "
+                           f"exceeds the wall {wall_ms:.4f} ms")
+    print(f"  device busy {busy:.4f} ms a call, idle share "
+          f"{1 - busy / wall_ms:.3f}"
+          + "".join(f"; {k} {ms:.4f} ms" for k, ms in spans.items())
+          + "; top kernels (ms a call):")
+    for key, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"    {ms:.4f}  {key[:100]}")
+    return kernels
+
+
+def profile_decode_step(model, params, lengths, steps=5, columns=1):
+    """``profile_step`` of one batched paged decode step at the cell's
+    shape, with the device time split into GEMMs, the paged decode kernel
+    and the rest.  ``columns`` > 1 profiles a verify step of that many
+    tokens a slot."""
     T, maxg = 16, 2048 // 16
     B = len(lengths)
     need = [-(-(n + columns) // T) for n in lengths]
@@ -1409,27 +1541,11 @@ def profile_decode_step(model, params, lengths, steps=5, columns=1):
         logits, _ = model.decode_step_multi(params, feed, cache, lens, table)
         return logits.float().argmax(-1).cpu()
 
-    for _ in range(3):
-        step()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(steps):
-        step()
-    wall_ms = (time.perf_counter() - t) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
-    kernels = {}  # device-side events only: the kernels themselves
-    for e in prof.key_averages():
-        dt = getattr(e, "self_device_time_total", 0.0)
-        if e.device_type == torch.autograd.DeviceType.CUDA and dt > 0:
-            kernels[e.key] = kernels.get(e.key, 0.0) + dt / 1e3 / steps
-    device_ms = sum(kernels.values())
-    # a device total above the step's wall time is a miscount (host-side
-    # events summed as device time), not a device that was never idle
-    check(device_ms <= wall_ms, f"profiled device time {device_ms:.4f} ms "
-                                f"exceeds the step's wall {wall_ms:.4f} ms")
+    what = "decode step" if columns == 1 else f"verify step ({columns} " \
+        "columns)"
+    kernels = profile_step(step, f"{what} at lengths {lengths}", steps=steps)
+    if not kernels:
+        return
     groups = {"gemm": 0.0, "paged_decode_kernel": 0.0, "other": 0.0}
     for key, ms in kernels.items():
         g = ("paged_decode_kernel" if "paged_decode_kernel" in key else
@@ -1437,20 +1553,8 @@ def profile_decode_step(model, params, lengths, steps=5, columns=1):
                                                       "cutlass", "xmma"))
              else "other")
         groups[g] += ms
-    what = "decode step" if columns == 1 else f"verify step ({columns} " \
-        "columns)"
-    print(f"  {what} at lengths {lengths}: {wall_ms:.4f} ms wall "
-          f"(no profiler)")
-    if not kernels:
-        print("  device time per kernel: not measured (the profiler saw "
-              "no device events)")
-        return
-    print(f"  device busy {device_ms:.4f} ms/step, idle share "
-          f"{1 - device_ms / wall_ms:.3f}; by group (ms/step): "
-          + ", ".join(f"{g} {ms:.4f}" for g, ms in groups.items())
-          + "; top kernels (ms/step):")
-    for key, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"    {ms:.4f}  {key[:100]}")
+    print("  by group (ms a call): "
+          + ", ".join(f"{g} {ms:.4f}" for g, ms in groups.items()))
 
 
 def phase_serve():
@@ -1730,18 +1834,20 @@ def knob_workloads(prompts, max_new, vocab):
     return runs, {"phase5": (prompts, max_new), "shared": (shared, max_new)}
 
 
-def first_divergences(model, params, prompts, base, got):
+def first_divergences(model, params, prompts, base, got,
+                      logits_of=prefill_logits):
     """Requests whose tokens equal the baseline's, and for each other one
     (request, position, the baseline's top-2 logit gap there): the gap
-    from a prefill of prompt + the baseline's tokens before it."""
+    from a prefill (``logits_of``) of prompt + the baseline's tokens
+    before it."""
     same, diverged = 0, []
     for i, (a, b) in enumerate(zip(base, got)):
         if a == b:
             same += 1
             continue
         j = next(k for k, (x, y) in enumerate(zip(a, b)) if x != y)
-        top2 = torch.topk(prefill_logits(model, params,
-                                         list(prompts[i]) + a[:j]), 2).values
+        top2 = torch.topk(logits_of(model, params,
+                                    list(prompts[i]) + a[:j]), 2).values
         diverged.append((i, j, float(top2[0] - top2[1])))
     return same, diverged
 
@@ -2024,6 +2130,371 @@ def phase_retune(model, params, logit_err, card):
 
 
 # ---------------------------------------------------------------------------
+# phases 13 and 14: the dense layout, the wave runtime, Zamba2 serving
+# ---------------------------------------------------------------------------
+def capture_flash():
+    """Wrap ``ops.flash_attention`` to keep clones of the inputs and output
+    of its first call and the shapes of every call.  Returns (kept,
+    shapes, undo)."""
+    kept, shapes = [], []
+    real = ops.flash_attention
+
+    def op(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        shapes.append(tuple(q.shape))
+        if not kept:
+            kept.append(([t.clone() for t in (q, k, v, out)], kw))
+        return out
+
+    def undo():
+        ops.flash_attention = real
+
+    ops.flash_attention = op
+    return kept, shapes, undo
+
+
+def check_captured_flash(kept, what):
+    """Relaunch a captured flash call on its inputs (bit for bit the run's
+    output) and hold it to the plain version within TOL and the
+    norm-relative FLASH_REL_TOL."""
+    (q, k, v, ran), kw = kept.pop()
+    fresh = ops.flash_attention(q, k, v, **kw)
+    check(torch.equal(fresh, ran), f"{what}: a fresh launch on the captured "
+                                   "inputs differs from the run's output")
+    want = attention_ref(q, k, v, **kw)
+    err = close(fresh, want, f"{what}: captured flash call")
+    rel = rel_err(fresh, want)
+    check(rel <= FLASH_REL_TOL[q.dtype],
+          f"{what}: captured flash call norm-relative error {rel:.3e}")
+    print(f"  captured flash call (q {tuple(q.shape)}, k {tuple(k.shape)}, "
+          f"{q.dtype}): equal to a fresh launch bit for bit; max abs err "
+          f"{err:.3e} (tol {TOL[q.dtype]}), norm-relative err {rel:.3e} "
+          f"(bar {FLASH_REL_TOL[q.dtype]})")
+    return err
+
+
+def dense_prefill_logits(model, params, seq):
+    """``prefill_logits`` for a stack without a paged layout: one
+    whole-prompt ``Model.prefill`` of ``seq`` into a fresh dense cache."""
+    logits, _ = model.prefill(
+        params, {"tokens": torch.tensor([list(seq)], device=model.device)},
+        model.init_cache(1, len(seq)))
+    return logits[0, -1, :model.cfg.vocab_size].float()
+
+
+def divergence_report(model, params, prompts, base, got, bar, what,
+                      logits_of=prefill_logits):
+    """Phase 9's divergence rule: requests equal to the baseline's, and
+    each other one's first divergence must sit at a top-2 logit gap
+    (``first_divergences``) within ``bar``.  Returns the line to print."""
+    same, diverged = first_divergences(model, params, prompts, base, got,
+                                       logits_of)
+    for i, j, g in diverged:
+        check(g <= bar, f"{what}: request {i} diverges at token {j} where "
+                        f"the top-2 gap {g:.6f} > {bar:.6f}")
+    return f"{same} of {len(got)} requests equal; first divergences " \
+        "(request, token, top-2 gap): " + (", ".join(
+            f"({i}, {j}, {g:.6f})" for i, j, g in diverged) or "none") + \
+        f" (bar {bar:.6f})"
+
+
+def cache_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(cache["blocks"]))
+
+
+WAVE_PROMPT, WAVE_NEW = 512, 32
+
+
+def phase_dense_wave(model, params, prompts, max_new, paged, logit_err,
+                     card):
+    """Phase 13 on phase 5's model: (a) phase 5's requests on the dense
+    layout; (b) a wave of 8 512-token prompts under attn_impl="pallas"
+    (the flash kernel once a layer in prefill, never in decode; the first
+    call captured and held to the plain version; tokens against the plain
+    attention's); (c) that wave at prefill_chunk 128 (4 chunks, no flash
+    launch); (d) that wave with autotune_kernels on phase 6's cache.
+    Returns the flash launches of (b)."""
+    cfg = model.cfg
+    L = cfg.n_layers
+    bar = DIVERGE_GAP_FACTOR * logit_err
+    t_phase = time.perf_counter()
+    print(f"  {card}")
+    # (a) the dense layout on phase 5's requests and engine config
+    engine = ServeEngine(model, params, ServeConfig(
+        max_seq=2048, batch_slots=8, kv_layout="dense"), device=DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = engine.generate(prompts, max_new)
+    launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches["paged_flash_decode"] == 0,
+          f"dense: {launches['paged_flash_decode']} paged launches")
+    check(engine.last_alloc is None, "dense: an allocator ran")
+    check((res.steps, res.prefill_chunks) == (paged.steps,
+                                              paged.prefill_chunks),
+          f"dense: {res.steps} steps, {res.prefill_chunks} chunks; paged "
+          f"{paged.steps}, {paged.prefill_chunks}")
+    for toks in res.tokens:
+        check(len(toks) == max_new and all(0 <= t < cfg.vocab_size
+                                           for t in toks),
+              "dense: a malformed continuation")
+    against = divergence_report(model, params, prompts, paged.tokens,
+                                res.tokens, bar, "dense")
+    cache = model.init_cache(8, 2048)
+    del cache["index"]
+    esize = cache["blocks"][0]["k"].element_size()
+    dense_bytes = cache_bytes(cache)
+    check(dense_bytes == 2 * 8 * 2048 * cfg.n_kv_heads * cfg.head_dim_
+          * esize * L, f"dense cache {dense_bytes} bytes")
+    print(f"  (a) dense layout, phase 5's requests: {res.steps} steps, "
+          f"{res.prefill_chunks} prefill chunks (paged: {paged.steps}, "
+          f"{paged.prefill_chunks}); launches {launches}; decode "
+          f"{res.decode_tokens_per_sec:.2f} tok/s "
+          f"({res.decode_seconds / max(res.steps, 1) * 1e3:.4f} ms a step; "
+          f"paged {paged.decode_tokens_per_sec:.2f}), prefill "
+          f"{res.prefill_seconds:.4f} s, peak {peak_gb:.2f} GB, dense "
+          f"cache {dense_bytes} bytes (8 x 2048 x {L} layers, {esize}-byte"
+          " elements)")
+    print(f"    against phase 5's paged run: {against}")
+    del engine
+    lengths = [len(p) + max_new // 2 for p in prompts]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+    feed = torch.ones((8, 1), dtype=torch.long, device=DEV)
+
+    def dense_step():
+        logits, _ = model.decode_step_multi(params, feed, cache, lens)
+        return logits.float().argmax(-1).cpu()
+
+    profile_step(dense_step, f"dense decode step at lengths {lengths}",
+                 annotate=("_dense_attend",))
+    del cache
+
+    # (b) the wave runtime, whole-prompt prefill through the flash kernel
+    rng = np.random.default_rng(SEED + 13)
+    wave = rng.integers(1, cfg.vocab_size, size=(8, WAVE_PROMPT)).tolist()
+    pallas = Model(replace(cfg, attn_impl="pallas"), device=DEV)
+    wave_cfg = dict(max_seq=1024, batch_slots=8, runtime="wave")
+    eng = ServeEngine(pallas, params, ServeConfig(**wave_cfg), device=DEV)
+    kept, shapes, undo = capture_flash()
+    try:
+        reset_counts()
+        wres = eng.generate(wave, WAVE_NEW)
+        wl = counts()
+    finally:
+        undo()
+    check(wres.prefill_chunks == 1 and wl["flash_attention"] == L,
+          f"wave: {wl['flash_attention']} flash launches, "
+          f"{wres.prefill_chunks} prefill dispatches (expected {L}, 1)")
+    check(set(shapes) == {(8, WAVE_PROMPT, cfg.n_heads, cfg.head_dim_)},
+          f"wave: flash shapes {set(shapes)}")
+    check(wl["paged_flash_decode"] == 0, f"wave: launches {wl}")
+    for toks in wres.tokens:
+        check(len(toks) == WAVE_NEW and all(0 <= t < cfg.vocab_size
+                                            for t in toks),
+              "wave: a malformed continuation")
+    check_captured_flash(kept, "wave")
+    plain = Model(replace(cfg, attn_impl="auto"), device=DEV)
+    pres = ServeEngine(plain, params, ServeConfig(**wave_cfg),
+                       device=DEV).generate(wave, WAVE_NEW)
+    print(f"  (b) wave, 8 x {WAVE_PROMPT} tokens, attn_impl=pallas: "
+          f"prefill {wres.prefill_seconds:.4f} s "
+          f"({8 * WAVE_PROMPT / wres.prefill_seconds:.1f} tok/s), decode "
+          f"{wres.decode_tokens_per_sec:.2f} tok/s, {wres.steps} steps; "
+          f"launches {wl}; plain attention (auto: dense at S={WAVE_PROMPT})"
+          f" prefill {pres.prefill_seconds:.4f} s")
+    print("    against the plain attention's wave: " + divergence_report(
+        model, params, wave, pres.tokens, wres.tokens, bar, "wave"))
+
+    # (c) the same wave in 128-token chunks: dense attention, no flash
+    reset_counts()
+    cres = ServeEngine(pallas, params, ServeConfig(
+        **wave_cfg, prefill_chunk=128), device=DEV).generate(wave, WAVE_NEW)
+    cl = counts()
+    check(cres.prefill_chunks == WAVE_PROMPT // 128
+          and cl["flash_attention"] == 0,
+          f"chunked wave: {cres.prefill_chunks} chunks, launches {cl}")
+    print(f"  (c) wave at prefill_chunk 128: {cres.prefill_chunks} chunks, "
+          f"prefill {cres.prefill_seconds:.4f} s, launches {cl}; against "
+          "(b): " + divergence_report(model, params, wave, wres.tokens,
+                                     cres.tokens, bar, "chunked wave"))
+
+    # (d) the wave with autotune_kernels on phase 6's cache
+    calls = []
+    real_cuda = ops.flash_attention_cuda
+
+    def spy(q, k, v, **kw):
+        calls.append((kw["block_q"], kw["block_kv"]))
+        return real_cuda(q, k, v, **kw)
+
+    t = time.perf_counter()
+    teng = ServeEngine(pallas, params, ServeConfig(
+        **wave_cfg, autotune_kernels=True), device=DEV)
+    # the warm-up generate() runs first, here, so that its tuning
+    # launches stay out of the wave's counts (in generate it hits the
+    # cache)
+    teng._warm_prefill_blocks(WAVE_PROMPT)
+    ops.flash_attention_cuda = spy
+    try:
+        reset_counts()
+        tres = teng.generate(wave, WAVE_NEW)
+        tl = counts()
+    finally:
+        ops.flash_attention_cuda = real_cuda
+    tune_s = time.perf_counter() - t
+    dims = {"B": 8, "S": WAVE_PROMPT, "SK": WAVE_PROMPT, "H": cfg.n_heads,
+            "KV": cfg.n_kv_heads, "D": cfg.head_dim_}
+    win = autotune.cached_blocks("flash_attention", dims, cfg.compute_dtype,
+                                 backend="cuda-sm90")
+    check(win is not None and win == teng.kernel_blocks["flash_attention"],
+          f"autotune: flash winner {win}, engine "
+          f"{teng.kernel_blocks.get('flash_attention')}")
+    for key, rows in (("rmsnorm_prefill", 8 * WAVE_PROMPT),
+                      ("rmsnorm_decode", 8)):
+        got = autotune.cached_blocks("rmsnorm", {"ROWS": rows,
+                                                 "D": cfg.d_model},
+                                     cfg.compute_dtype, backend="cuda-sm90")
+        check(got is not None and got == teng.kernel_blocks[key],
+              f"autotune: {key} {got}")
+    check(len(calls) == L and set(calls) == {(win["block_q"],
+                                              win["block_kv"])},
+          f"autotune: the wave's flash calls ran {set(calls)}, winner "
+          f"{win}")
+    print(f"  (d) wave with autotune_kernels: engine build + serve "
+          f"{tune_s:.2f} s; flash winner {win} at {dims} (cuda-sm90), "
+          f"RMSNorm {teng.kernel_blocks['rmsnorm_prefill']} / "
+          f"{teng.kernel_blocks['rmsnorm_decode']}; {len(calls)} flash "
+          f"calls at the winner's tiles; launches {tl}; prefill "
+          f"{tres.prefill_seconds:.4f} s, decode "
+          f"{tres.decode_tokens_per_sec:.2f} tok/s")
+    print("    against (b): " + divergence_report(
+        model, params, wave, wres.tokens, tres.tokens, bar, "tuned wave"))
+    print(f"  phase 13: {time.perf_counter() - t_phase:.2f} s")
+    return wl["flash_attention"]
+
+
+def wave_logit_error(model, params, prompt, generated):
+    """Phase 5's logit error on a dense-cache stack: the last logits of
+    ``prompt + generated[:-1]`` through whole-prompt prefill then one
+    decode step a token, against one prefill of the whole sequence.
+    Returns their largest absolute difference."""
+    tokens = torch.tensor([list(prompt)], device=model.device)
+    cache = model.init_cache(1, len(prompt) + len(generated))
+    logits, cache = model.prefill(params, {"tokens": tokens}, cache)
+    for tok in generated[:-1]:
+        logits, cache = model.decode_step(
+            params, torch.tensor([[tok]], device=model.device), cache)
+    a = logits[0, -1, :model.cfg.vocab_size].float()
+    b = dense_prefill_logits(model, params,
+                             list(prompt) + list(generated[:-1]))
+    check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
+          "zamba2 serve: logits not finite")
+    return float((a - b).abs().max())
+
+
+def phase_zamba_serve(model, params, card):
+    """Phase 14 on phase 8's model (attn_impl="pallas"): 8 prompts of 512
+    tokens on ServeConfig(max_seq=1024, batch_slots=4, kv_layout="paged"),
+    which the reference's wave fallback serves in 2 waves over dense
+    caches.  Returns the flash launches."""
+    cfg = model.cfg
+    t_phase = time.perf_counter()
+    scfg = ServeConfig(max_seq=1024, batch_slots=4, kv_layout="paged")
+    rng = np.random.default_rng(SEED + 14)
+    prompts = rng.integers(1, cfg.vocab_size, size=(8, WAVE_PROMPT)).tolist()
+    n_shared = sum(k == "shared" for k in cfg.superblock) * cfg.n_superblocks
+    engine = ServeEngine(model, params, scfg, device=DEV)
+    check(not engine._continuous and engine.last_alloc is None,
+          "zamba2 serve: not on the wave runtime")
+    check(engine.cfg.kv_cache_pages * 16 >= scfg.batch_slots * scfg.max_seq,
+          f"zamba2 serve: kv_cache_pages {engine.cfg.kv_cache_pages} under "
+          f"the dense footprint")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kept, shapes, undo = capture_flash()
+    try:
+        reset_counts()
+        res = engine.generate(prompts, WAVE_NEW)
+        launched = counts()
+    finally:
+        undo()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    waves = len(prompts) // scfg.batch_slots
+    check(launched["flash_attention"] == n_shared * waves
+          and set(shapes) == {(4, WAVE_PROMPT, cfg.n_heads, cfg.head_dim_)},
+          f"zamba2 serve: {launched['flash_attention']} flash launches at "
+          f"{set(shapes)} (expected {n_shared} a wave at H={cfg.n_heads}, "
+          f"D={cfg.head_dim_})")
+    check(res.prefill_chunks == waves, f"zamba2 serve: {res.prefill_chunks}"
+                                       f" prefill dispatches, {waves} waves")
+    check(launched["paged_flash_decode"] == 0 and launched["gla"] == 0,
+          f"zamba2 serve: launches {launched}")
+    for toks in res.tokens:
+        check(len(toks) == WAVE_NEW and all(0 <= t < cfg.vocab_size
+                                            for t in toks),
+              "zamba2 serve: a malformed continuation")
+    check_captured_flash(kept, "zamba2 serve")
+    logit_err = wave_logit_error(model, params, prompts[0], res.tokens[0])
+    bar = DIVERGE_GAP_FACTOR * logit_err
+    blocked = Model(replace(cfg, attn_impl="blocked"), device=DEV)
+    bres = ServeEngine(blocked, params, scfg, device=DEV).generate(
+        prompts, WAVE_NEW)
+    print(f"  {card}; zamba2-1.2b bf16 full width, ServeConfig(max_seq="
+          f"{scfg.max_seq}, batch_slots={scfg.batch_slots}, "
+          f"kv_layout={scfg.kv_layout!r})")
+    print(f"  serve: 2 waves of 4 x {WAVE_PROMPT} tokens: prefill "
+          f"{res.prefill_seconds:.4f} s, decode {res.decode_seconds:.4f} s, "
+          f"{res.decode_tokens_per_sec:.2f} tok/s, {res.steps} steps, "
+          f"{res.prefill_chunks} prefill dispatches, launches {launched}, "
+          f"peak {peak_gb:.2f} GB, kv_cache_pages "
+          f"{engine.cfg.kv_cache_pages}; decode-path vs prefill-path max "
+          f"abs logit difference {logit_err:.6f}")
+    print(f"  attn_impl=blocked: prefill {bres.prefill_seconds:.4f} s; "
+          "against it: " + divergence_report(
+              blocked, params, prompts, bres.tokens, res.tokens, bar,
+              "zamba2 serve", dense_prefill_logits))
+    cache = model.init_cache(4, scfg.max_seq)
+    cache["index"] = WAVE_PROMPT + WAVE_NEW // 2
+    feed = torch.ones((4, 1), dtype=torch.long, device=DEV)
+
+    def decode():
+        cache["index"] = WAVE_PROMPT + WAVE_NEW // 2
+        logits, _ = model.decode_step(params, feed, cache)
+        return logits.float().argmax(-1).cpu()
+
+    profile_step(decode, f"zamba2 wave decode step (B=4 at length "
+                         f"{cache['index']}: 36 Mamba2 steps, 2 dense "
+                         "attentions)", annotate=("_dense_attend",))
+    del cache
+
+    # f32 at one superblock's depth: the card against the CPU
+    f32 = replace(cfg, n_layers=len(cfg.superblock), param_dtype="float32",
+                  compute_dtype="float32")
+    p_dev = Model(f32, device=DEV).init(SEED)
+    p_cpu = tree_map(lambda t: t.cpu(), p_dev)
+    small = [p[:128] for p in prompts[:4]]
+    out = {}
+    for dev, p in (("cpu", p_cpu), (DEV, p_dev)):
+        m = Model(f32, device=dev)
+        out[dev] = (m, p, ServeEngine(m, p, ServeConfig(
+            max_seq=256, batch_slots=4), device=dev).generate(small, 8))
+    m_cpu, _, want = out["cpu"]
+    got = out[DEV][2]
+    err32 = wave_logit_error(m_cpu, p_cpu, small[0], want.tokens[0])
+    bar32 = DIVERGE_GAP_FACTOR * max(err32, 1e-6)
+    check((got.steps, got.prefill_chunks) == (want.steps,
+                                              want.prefill_chunks),
+          f"zamba2 f32: counts {got.steps}/{got.prefill_chunks} vs "
+          f"{want.steps}/{want.prefill_chunks}")
+    print(f"  f32, one superblock ({f32.n_layers} layers), 4 x 128 tokens, "
+          f"8 new: card against the CPU: " + divergence_report(
+              m_cpu, p_cpu, small, want.tokens, got.tokens, bar32,
+              "zamba2 f32", dense_prefill_logits))
+    print(f"  phase 14: {time.perf_counter() - t_phase:.2f} s")
+    return launched["flash_attention"]
+
+
+# ---------------------------------------------------------------------------
 # phase 8: Zamba2-1.2B's forward and LM loss at full width
 # ---------------------------------------------------------------------------
 def profile_forward(fn):
@@ -2181,7 +2652,7 @@ def phase_zamba():
     else:
         print("  device time per kernel: not measured (the profiler saw no "
               "device events)")
-    return launched
+    return launched, model, params
 
 
 # ---------------------------------------------------------------------------
@@ -2633,9 +3104,9 @@ def main() -> int:
     t_start = time.perf_counter()
 
     def phase(n, what):
-        print(f"[{n}/12] ({time.perf_counter() - t_start:.1f} s) {what}")
+        print(f"[{n}/14] ({time.perf_counter() - t_start:.1f} s) {what}")
 
-    print(f"[1/12] device: {name}; torch {torch.__version__}, "
+    print(f"[1/14] device: {name}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(tmp, "cache.json")
@@ -2695,11 +3166,22 @@ def main() -> int:
             retuned = phase_retune(model, params, logit_err, card)
             records["paged_flash_decode"]["retune_launches"] = retuned[
                 "paged_flash_decode"]
+            phase(13, "the dense layout and the wave runtime on gemma-7b "
+                  "at full width (slice 10's main path; after phase 11, "
+                  "before phase 8)")
+            serve = {"gemma_wave": phase_dense_wave(
+                model, params, prompts, max_new, res, logit_err, card)}
             del model, params
             torch.cuda.empty_cache()
             phase(8, "zamba2-1.2b forward and loss at full width "
                   "(slice 3's main path)")
-            records["gla"]["launches"] = phase_zamba()["gla"]
+            launched, model, params = phase_zamba()
+            records["gla"]["launches"] = launched["gla"]
+            phase(14, "zamba2-1.2b served on the wave runtime at full "
+                  "width (slice 10; after phase 8, on its model)")
+            serve["zamba2_wave"] = phase_zamba_serve(model, params, card)
+            records["flash_attention"]["serve_launches"] = serve
+            del model, params
             torch.cuda.empty_cache()
             phase(10, "ACTS co-tunes serve engine, train step and decode "
                   "kernel (launch.tune --joint, --joint --real; slice 8's "

@@ -1,15 +1,17 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id>``.
 
-Runs the port's paged continuous-batching engine on ``--device``
-(default ``cuda``; raises without a card unless ``--device cpu`` is
-given), with the reduced config of the named architecture and random
-weights from ``--seed``, as the reference launcher ``repro.launch.serve``
-does.  ``--schedule``, ``--page-policy``, ``--temperature``,
+Runs the port's serve engine on ``--device`` (default ``cuda``; raises
+without a card unless ``--device cpu`` is given), with the reduced config
+of the named architecture and random weights from ``--seed``, as the
+reference launcher ``repro.launch.serve`` does.  ``--runtime
+{continuous,wave}``, ``--kv-layout {dense,paged}`` (default dense, as in
+the reference), ``--schedule``, ``--page-policy``, ``--temperature``,
 ``--mixed``, ``--drift`` and the online retuner's ``--retune``,
 ``--retune-threshold`` and ``--retune-budget`` are the reference's flags,
-with its trace generator and printout; ``--runtime`` and ``--mesh`` come
-with later slices (ROADMAP queue 1: dense layout and wave runtime;
-multi-device).
+with its trace generator and printout.  A stack without continuous
+support (``--arch zamba2-1.2b``) runs the wave loop whatever
+``--runtime`` says, as the reference's engine does.  ``--mesh`` comes
+with a later slice (ROADMAP queue 1: multi-device).
 """
 from __future__ import annotations
 
@@ -35,22 +37,24 @@ def main(argv=None) -> int:
     ap.add_argument("--batch-slots", type=int, default=4)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kv-layout", choices=("paged",), default="paged",
-                    help="KV layout (only the paged pool is ported)")
+    ap.add_argument("--runtime", choices=("continuous", "wave"),
+                    default="continuous")
+    ap.add_argument("--kv-layout", choices=("dense", "paged"),
+                    default="dense")
     ap.add_argument("--kv-pages", type=int, default=None,
-                    help="KV pool size in 16-token pages (bounds how many "
-                         "requests stay resident)")
+                    help="KV pool size in 16-token pages (paged layout: "
+                         "bounds how many requests stay resident)")
     ap.add_argument("--schedule", choices=SCHEDULES, default="fifo")
     ap.add_argument("--page-policy", choices=PAGE_POLICIES,
                     default="reserve",
-                    help="KV reservation policy: worst-case up-front "
-                         "(reserve) or prompt-only + on-demand growth with "
-                         "recompute preemption (on_demand)")
+                    help="paged-layout KV reservation policy: worst-case "
+                         "up-front (reserve) or prompt-only + on-demand "
+                         "growth with recompute preemption (on_demand)")
     ap.add_argument("--prefill-chunk", type=int, default=512)
     ap.add_argument("--mixed", action="store_true",
                     help="mixed-length workload: prompt lengths in "
                          "[2, prompt-len], generation lengths in "
-                         "[1, max-new]")
+                         "[1, max-new] (continuous runtime only)")
     ap.add_argument("--retune", action="store_true",
                     help="online workload-aware retuning: fingerprint the "
                          "live request window, detect drift from the "
@@ -74,13 +78,13 @@ def main(argv=None) -> int:
     engine = ServeEngine(model, params, ServeConfig(
         max_seq=args.prompt_len + args.max_new + 8,
         batch_slots=args.batch_slots, temperature=args.temperature,
-        seed=args.seed, kv_layout=args.kv_layout,
+        seed=args.seed, runtime=args.runtime, kv_layout=args.kv_layout,
         kv_cache_pages=args.kv_pages, schedule=args.schedule,
         page_policy=args.page_policy, prefill_chunk=args.prefill_chunk,
         retune=args.retune, retune_threshold=args.retune_threshold,
         retune_budget=args.retune_budget), device=args.device)
     rng = np.random.default_rng(args.seed)
-    if args.mixed:
+    if args.mixed and engine._continuous:
         plens = rng.integers(2, args.prompt_len + 1, size=args.requests)
         prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
                    for n in plens]
@@ -102,16 +106,19 @@ def main(argv=None) -> int:
                                      args.prompt_len)).tolist()
         max_new = args.max_new
     res = engine.generate(prompts, max_new)
-    print(f"{cfg.name} [continuous/{args.kv_layout}/{args.schedule} on "
-          f"{engine.device}]: {args.requests} requests, "
+    mode = (f"{args.runtime}/{args.kv_layout}/{args.schedule}"
+            if engine._continuous else "wave")
+    print(f"{cfg.name} [{mode} on {engine.device}]: {args.requests} "
+          f"requests, "
           f"prefill {res.prefill_seconds:.2f}s, "
           f"decode {res.decode_seconds:.2f}s "
           f"({res.decode_tokens_per_sec:.1f} tok/s, {res.steps} steps, "
           f"p50 {res.p50_latency_s:.3f}s, p95 {res.p95_latency_s:.3f}s)")
     a = engine.last_alloc
-    print(f"  kv pool: {a.n_groups} groups x {a.group_tokens} tokens, "
-          f"high water {a.high_water} groups "
-          f"[{args.page_policy}, {res.preemptions} preemptions]")
+    if a is not None:
+        print(f"  kv pool: {a.n_groups} groups x {a.group_tokens} tokens, "
+              f"high water {a.high_water} groups "
+              f"[{args.page_policy}, {res.preemptions} preemptions]")
     if args.retune:
         if not res.retunes:
             print("  retune: no workload shift detected")

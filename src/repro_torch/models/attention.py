@@ -8,9 +8,11 @@ Counterpart of ``repro.models.attention`` on these paths:
   softmax over KV blocks in plain PyTorch), ``pallas`` (the CUDA
   flash-attention kernel, ``kernels.ops.flash_attention``) and ``auto``
   (the reference's rules choosing among them);
-* the scalar-``cache_index`` cache path (chunked prefill): append the
-  chunk's K/V into a dense cache view, then dense causal attention
-  (``attend(impl="dense")``);
+* the dense cache path (``init_attn_cache_defs``' (B, S, KV, D)
+  buffers): with a scalar ``cache_index`` (chunked prefill, the wave
+  runtime's decode step) append the chunk's K/V at it, with a (B,)
+  vector (the dense continuous layout) append each slot's token(s) at
+  its own index; then dense causal attention (``attend(impl="dense")``);
 * the paged decode path: append each slot's token through its
   page-table row, then the paged decode kernel
   (``kernels.ops.paged_flash_decode``); with C > 1 tokens a slot (the
@@ -19,9 +21,9 @@ Counterpart of ``repro.models.attention`` on these paths:
 
 Unlike the reference, whose arrays are immutable, the cache tensors are
 updated in place; the returned cache is the same dict.  The banded
-``local`` implementation (sliding windows), the vector-``cache_index``
-dense layout and cross-attention are later slices and raise
-``NotImplementedError``.  All softmax math runs in f32.
+``local`` implementation and the ring cache of sliding windows, and
+cross-attention, are later slices and raise ``NotImplementedError``.
+All softmax math runs in f32.
 """
 from __future__ import annotations
 
@@ -36,7 +38,8 @@ from repro_torch.kernels import ops
 from repro_torch.models.common import (apply_rope, dtype_of, fan_in_init,
                                        rope_freqs)
 
-__all__ = ["attention_defs", "self_attention", "attend"]
+__all__ = ["attention_defs", "init_attn_cache_defs", "self_attention",
+           "attend"]
 
 NEG_INF = -1e30
 
@@ -50,6 +53,13 @@ def attention_defs(cfg: ModelConfig):
         "wv": ((d, KV, Dh), fan_in_init(0)),
         "wo": ((H, Dh, d), fan_in_init(1)),
     }
+
+
+def init_attn_cache_defs(cfg: ModelConfig, batch: int, max_seq: int):
+    """{name: (shape, dtype)} of one block's dense KV-cache buffers."""
+    shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim_)
+    dt = dtype_of(cfg.compute_dtype)
+    return {"k": (shape, dt), "v": (shape, dt)}
 
 
 # ---------------------------------------------------------------------------
@@ -229,10 +239,12 @@ def self_attention(
     ``page_table`` the cache is a (groups, group_tokens, KV, D) pool and
     ``cache_index`` a (B,) vector: every slot appends its token(s) at its
     own position through its table row, then attends with the paged
-    decode kernel (one token) or ``_paged_verify_attend`` (C > 1).  With
-    an int ``cache_index`` the cache is a dense (B, S, KV, D) buffer: the
-    chunk lands at ``cache_index`` and attends causally over the first
-    ``cache_index + S`` positions.
+    decode kernel (one token) or ``_paged_verify_attend`` (C > 1).
+    Otherwise the cache is a dense (B, S, KV, D) buffer: with an int
+    ``cache_index`` the chunk lands at ``cache_index`` and attends
+    causally over the first ``cache_index + S`` positions; with a (B,)
+    vector each slot's token(s) land at its own index and attend over its
+    own prefix.
     """
     q, k, v = _project_qkv(params, x, cfg)
     cos, sin = rope_freqs(positions, cfg.head_dim_, cfg.rope_theta)
@@ -272,12 +284,29 @@ def self_attention(
             ck[gid[keep], off[keep]] = k[keep].to(ck.dtype)
             cv[gid[keep], off[keep]] = v[keep].to(cv.dtype)
             y = _paged_verify_attend(q, ck, cv, page_table, pos)
+    elif isinstance(cache_index, torch.Tensor):
+        # The dense continuous layout: each slot appends its token(s) at
+        # its own index.  S_new > 1 is the speculative-verify chain; the
+        # reference drops the columns past the buffer (a draft chain
+        # overrunning max_seq on a request that finishes first) in its
+        # scatter, and indexed assignment would raise there, so they are
+        # masked out of the write.  No accepted column reads them.
+        ck, cv = cache["k"], cache["v"]
+        B, S_new = k.shape[:2]
+        idx = cache_index.long()
+        rows = torch.arange(B, device=x.device)
+        if S_new == 1:
+            ck[rows, idx] = k[:, 0].to(ck.dtype)
+            cv[rows, idx] = v[:, 0].to(cv.dtype)
+        else:
+            ppos = idx[:, None] + torch.arange(S_new, device=x.device)
+            keep = ppos < ck.shape[1]
+            rows = rows[:, None].expand_as(ppos)[keep]
+            ck[rows, ppos[keep]] = k[keep].to(ck.dtype)
+            cv[rows, ppos[keep]] = v[keep].to(cv.dtype)
+        y = attend(q, ck, cv, cfg=cfg, causal=True, window=0, impl="dense",
+                   kv_len=idx + S_new, q_offset=idx)
     else:
-        if not isinstance(cache_index, int):
-            raise NotImplementedError(
-                "per-slot cache_index on a dense cache (the dense "
-                "continuous layout) is not ported (ROADMAP queue 1: dense "
-                "layout and wave runtime)")
         ck, cv = cache["k"], cache["v"]
         S_new = k.shape[1]
         ck[:, cache_index:cache_index + S_new] = k.to(ck.dtype)
@@ -285,11 +314,15 @@ def self_attention(
         y = attend(q, ck, cv, cfg=cfg, causal=True, window=0, impl="dense",
                    kv_len=cache_index + S_new, q_offset=cache_index)
 
+    return out_proj(params, y, cfg), cache
+
+
+def out_proj(params, y: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """(B, S, H, Dh) attention output -> (B, S, d) through ``wo``."""
     cdt = dtype_of(cfg.compute_dtype)
     B, S, H, Dh = y.shape
-    out = y.reshape(B, S, H * Dh).to(cdt) @ params["wo"].reshape(
+    return y.reshape(B, S, H * Dh).to(cdt) @ params["wo"].reshape(
         H * Dh, -1).to(cdt)
-    return out, cache
 
 
 def _paged_decode_attend(q, k_pages, v_pages, page_table, lengths):

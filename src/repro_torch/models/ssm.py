@@ -1,6 +1,7 @@
 """Mamba2 (SSD) block: state-space duality on top of the GLA core.
 
-Counterpart of ``repro.models.ssm`` on the full-sequence path:
+Counterpart of ``repro.models.ssm``: the full-sequence block, the
+decode step and its cache:
 
     [z | x | B | C | dt] = in_proj(u)
     x,B,C <- causal depthwise conv (k=4) + SiLU
@@ -12,9 +13,10 @@ B/C are shared across heads (single group), x is split into heads of
 size ``head_dim = d_inner / ssm_heads``; the recurrence is chunked GLA
 with q=C, k=B, v=dt·x, q and k passed as head broadcasts (no copies).
 ``cfg.gla_impl`` picks the plain ``models.gla.chunked_gla`` ("jnp") or
-the CUDA kernel through ``kernels.ops.gla`` ("pallas").  The decode step
-and its cache (``mamba2_decode``, ``mamba2_cache_defs``) come with the
-serve slice.
+the CUDA kernel through ``kernels.ops.gla`` ("pallas").  Serving keeps
+a cache of the conv window's last ``ssm_conv - 1`` inputs and the f32
+SSM state a layer (``mamba2_cache_defs``); ``mamba2_decode`` advances
+both by one token through ``models.gla.gla_step``.
 """
 from __future__ import annotations
 
@@ -28,9 +30,10 @@ from repro_torch.configs import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import (dtype_of, fan_in_init, normal_init,
                                        ones_init, rms_norm, zeros_init)
-from repro_torch.models.gla import chunked_gla
+from repro_torch.models.gla import chunked_gla, gla_step
 
-__all__ = ["mamba2_defs", "mamba2_block"]
+__all__ = ["mamba2_defs", "mamba2_cache_defs", "mamba2_block",
+           "mamba2_decode"]
 
 
 def _gla(cfg: ModelConfig, q, k, v, log_g):
@@ -84,6 +87,15 @@ def mamba2_defs(cfg: ModelConfig):
     }
 
 
+def mamba2_cache_defs(cfg: ModelConfig, batch: int):
+    """{name: (shape, dtype)} of one layer's decode cache: the conv
+    window's last ``ssm_conv - 1`` inputs and the SSM state, both f32."""
+    d_inner, nh, hd, ds = _dims(cfg)
+    conv_dim = d_inner + 2 * ds
+    return {"conv": ((batch, cfg.ssm_conv - 1, conv_dim), torch.float32),
+            "state": ((batch, nh, ds, hd), torch.float32)}
+
+
 def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
     d_inner, nh, hd, ds = _dims(cfg)
     return torch.split(zxbcdt, [d_inner, d_inner + 2 * ds, nh], dim=-1)
@@ -131,3 +143,39 @@ def mamba2_block(params: Dict[str, torch.Tensor], u: torch.Tensor,
 
     y = rms_norm(y, params["norm_scale"], cfg.norm_eps) * F.silu(z.float())
     return y.to(cdt) @ params["out_proj"].to(cdt)
+
+
+def mamba2_decode(params: Dict[str, torch.Tensor], u: torch.Tensor,
+                  cache: Dict[str, torch.Tensor], cfg: ModelConfig
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Single-token recurrent step, O(1) a token: u (B, 1, d_model) ->
+    (out (B, 1, d_model), the new {"conv", "state"})."""
+    B, S, d = u.shape
+    if S != 1:
+        raise ValueError(f"mamba2_decode takes one token a row; got {S}")
+    d_inner, nh, hd, ds = _dims(cfg)
+    cdt = dtype_of(cfg.compute_dtype)
+
+    zxbcdt = u.to(cdt) @ params["in_proj"].to(cdt)
+    z, xBC, dt_raw = _split_proj(cfg, zxbcdt)
+    xBC = xBC[:, 0].float()  # (B, conv_dim)
+
+    # conv window update
+    window = torch.cat([cache["conv"], xBC[:, None, :]], dim=1)  # (B, k, D)
+    conv_out = F.silu(torch.einsum("bkd,kd->bd", window,
+                                   params["conv_w"].float())
+                      + params["conv_b"].float())
+
+    x, Bm, Cm, dt, log_g = _ssd_inputs(cfg, params, conv_out[:, None, :],
+                                       dt_raw)
+    xh = x[:, 0].reshape(B, nh, hd)
+    q = Cm[:, 0, None, :].expand(B, nh, ds)
+    k = Bm[:, 0, None, :].expand(B, nh, ds)
+    v = xh * dt[:, 0, :, None]
+    y, state = gla_step(q, k, v, log_g[:, 0], cache["state"])
+    y = y + xh * params["D"].float()[None, :, None]
+    y = y.reshape(B, 1, d_inner)
+
+    y = rms_norm(y, params["norm_scale"], cfg.norm_eps) * F.silu(z.float())
+    out = y.to(cdt) @ params["out_proj"].to(cdt)
+    return out, {"conv": window[:, 1:], "state": state}

@@ -1,6 +1,6 @@
 """Model assembly: embeddings, the block stack, tied logits, the
-full-sequence forward and LM loss, chunked prefill and paged
-continuous-batching decode.
+full-sequence forward and LM loss, whole-prompt and chunked prefill, and
+decode over dense or paged KV caches.
 
 Counterpart of ``repro.models.transformer`` for stacks of ``attn``,
 ``mamba2`` and ``shared`` blocks (Gemma-7B; Zamba2-1.2B's
@@ -9,8 +9,7 @@ parameters stacked along a leading layer axis; PyTorch runs eagerly, so
 here the layers are a plain list of per-layer dicts (layer
 ``sb * len(superblock) + i`` has kind ``superblock[i]``) and the stack
 is a Python loop.  ``models.bridge`` turns the reference's stacked
-pytree into this layout.  ``forward`` and ``loss`` run every kind; the
-serve methods run ``attn`` stacks only.
+pytree into this layout.
 
 Parameters::
 
@@ -22,9 +21,12 @@ Parameters::
      "final_norm": (d,),
      ["shared": {"ln1", "attn", "ln2", "mlp"}]}  # the one shared block
 
-Caches hold ``{"blocks": [{"k", "v"}, ...]}`` per layer: dense
-(B, S, KV, D) buffers for chunked prefill (plus an int ``"index"``), or
-(groups, group_tokens, KV, D) pools under the paged layout.
+Caches hold ``{"blocks": [...], "index": int}`` with one dict a layer:
+dense (B, max_seq, KV, D) ``"k"``/``"v"`` buffers for ``attn`` layers
+and each ``shared`` invocation, the conv tail and f32 SSM state
+(``"conv"``, ``"state"``) for ``mamba2`` layers (``init_cache``); or,
+under the paged layout, (groups, group_tokens, KV, D) pools for
+attention stacks (``init_paged_cache``).  Caches are updated in place.
 """
 from __future__ import annotations
 
@@ -32,17 +34,45 @@ import math
 from typing import Any, Dict, List, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (dtype_of, normal_init, ones_init,
-                                       resolve_device, rms_norm)
+from repro_torch.models.common import (apply_rope, dtype_of, normal_init,
+                                       ones_init, resolve_device, rms_norm,
+                                       rope_freqs)
+from repro_torch.models.gla import chunked_gla
 
 __all__ = ["Model", "count_params"]
 
 KINDS = ("attn", "mamba2", "shared")
+
+
+def cache_block_defs(cfg: ModelConfig, kind: str, batch: int,
+                     max_seq: int) -> Dict[str, Any]:
+    """{name: (shape, dtype)} of one layer's serve cache: dense K/V
+    buffers for an attention layer (each ``shared`` invocation has its
+    own), the conv tail and SSM state for a Mamba2 layer."""
+    if kind in ("attn", "shared"):
+        return attn_mod.init_attn_cache_defs(cfg, batch, max_seq)
+    if kind == "mamba2":
+        return ssm_mod.mamba2_cache_defs(cfg, batch)
+    raise ValueError(f"unknown block kind {kind!r}")
+
+
+def paged_cache_block_defs(cfg: ModelConfig, kind: str, n_groups: int,
+                           group_tokens: int) -> Dict[str, Any]:
+    """{name: (shape, dtype)} of one layer's KV pools under the paged
+    layout.  Only dense-cache attention kinds are pageable
+    (``Model.supports_continuous_batching`` gates the rest to the wave
+    runtime)."""
+    if kind in ("attn", "shared"):
+        shape = (n_groups, group_tokens, cfg.n_kv_heads, cfg.head_dim_)
+        dt = dtype_of(cfg.compute_dtype)
+        return {"k": (shape, dt), "v": (shape, dt)}
+    raise ValueError(f"block kind {kind!r} has no paged cache layout")
 
 
 def _apply_block_full(kind: str, p: Dict[str, Any], x: torch.Tensor,
@@ -121,26 +151,87 @@ def _stack_forward(blocks_params: List[Dict[str, Any]], x: torch.Tensor,
     return x, aux
 
 
-def _apply_block_decode(p: Dict[str, Any], x: torch.Tensor,
+def _apply_block_decode(kind: str, p: Dict[str, Any], x: torch.Tensor,
                         cache: Dict[str, torch.Tensor], ctx: Dict[str, Any],
                         cfg: ModelConfig) -> torch.Tensor:
-    """One ``attn`` block with cache update (in place)."""
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    y, _ = attn_mod.self_attention(
-        p["attn"], h, cfg=cfg, positions=ctx["positions"], cache=cache,
-        cache_index=ctx["index"], page_table=ctx.get("page_table"))
-    x = x + y
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_mod.mlp(p["mlp"], h, cfg)
+    """One block over new token(s) with its cache updated in place."""
+    if kind == "shared":
+        p = ctx["shared_params"]
+        kind = "attn"
+    if kind == "attn":
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        y, _ = attn_mod.self_attention(
+            p["attn"], h, cfg=cfg, positions=ctx["positions"], cache=cache,
+            cache_index=ctx["index"], page_table=ctx.get("page_table"))
+        x = x + y
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + mlp_mod.mlp(p["mlp"], h, cfg)
+    if kind == "mamba2":
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        y, new = ssm_mod.mamba2_decode(p["mixer"], h, cache, cfg)
+        cache.update(new)
+        return x + y
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 def _stack_decode(blocks_params: List[Dict[str, Any]],
                   blocks_cache: List[Dict[str, torch.Tensor]],
                   x: torch.Tensor, ctx: Dict[str, Any],
                   cfg: ModelConfig) -> torch.Tensor:
-    for p, c in zip(blocks_params, blocks_cache):
-        x = _apply_block_decode(p, x, c, ctx, cfg)
+    n = len(cfg.superblock)
+    for i, (p, c) in enumerate(zip(blocks_params, blocks_cache)):
+        x = _apply_block_decode(cfg.superblock[i % n], p, x, c, ctx, cfg)
     return x
+
+
+def _write_prefill_kv(cache: Dict[str, torch.Tensor], k: torch.Tensor,
+                      v: torch.Tensor, S: int) -> None:
+    """Write a prompt's K/V into the head of a dense buffer (in place).
+    The reference's ring-rolled write of sliding-window buffers comes
+    with ``swa`` (ROADMAP queue 1: other model families)."""
+    S_w = min(S, cache["k"].shape[1])
+    cache["k"][:, :S_w] = k[:, :S_w].to(cache["k"].dtype)
+    cache["v"][:, :S_w] = v[:, :S_w].to(cache["v"].dtype)
+
+
+def _prefill_recurrent(kind: str, p: Dict[str, Any], x: torch.Tensor,
+                       cfg: ModelConfig):
+    """A recurrent block over the whole prompt, with the final state that
+    decode continues from: (x + block(x), the layer's new cache)."""
+    if kind != "mamba2":
+        raise ValueError(kind)
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    y, state = _mamba2_with_state(p["mixer"], h, cfg)
+    return x + y, state
+
+
+def _mamba2_with_state(params: Dict[str, torch.Tensor], u: torch.Tensor,
+                       cfg: ModelConfig):
+    """``ssm.mamba2_block`` that also returns the decode cache: the last
+    ``ssm_conv - 1`` conv inputs and the final SSM state.  The scan is the
+    plain ``chunked_gla`` whatever ``cfg.gla_impl`` says, as in the
+    reference (a quirk kept: ROADMAP queue 3)."""
+    B, S, d = u.shape
+    d_inner, nh, hd, ds = ssm_mod._dims(cfg)
+    cdt = dtype_of(cfg.compute_dtype)
+    zxbcdt = u.to(cdt) @ params["in_proj"].to(cdt)
+    z, xBC, dt_raw = ssm_mod._split_proj(cfg, zxbcdt)
+    xBC_f = xBC.float()
+    tail = cfg.ssm_conv - 1
+    conv_tail = F.pad(xBC_f, (0, 0, tail, 0))[:, -tail:]
+    xBC_c = ssm_mod._causal_conv(xBC_f, params["conv_w"].float(),
+                                 params["conv_b"].float())
+    x, Bm, Cm, dt, log_g = ssm_mod._ssd_inputs(cfg, params, xBC_c, dt_raw)
+    xh = x.reshape(B, S, nh, hd)
+    q = Cm[:, :, None, :].expand(B, S, nh, ds)
+    k = Bm[:, :, None, :].expand(B, S, nh, ds)
+    v = xh * dt[..., None]
+    y, state = chunked_gla(q, k, v, log_g, chunk=cfg.ssm_chunk)
+    y = y + xh * params["D"].float()[None, None, :, None]
+    y = y.reshape(B, S, d_inner)
+    y = rms_norm(y, params["norm_scale"], cfg.norm_eps) * F.silu(z.float())
+    out = y.to(cdt) @ params["out_proj"].to(cdt)
+    return out, {"conv": conv_tail.contiguous(), "state": state}
 
 
 def count_params(cfg: ModelConfig) -> int:
@@ -295,14 +386,79 @@ class Model:
         return total, {"loss": loss, "aux_loss": aux,
                        "accuracy": acc_sum / denom, "tokens": denom}
 
-    def _serve_guard(self) -> None:
-        if any(kind != "attn" for kind in self.cfg.superblock):
-            raise NotImplementedError(
-                f"serving superblock {self.cfg.superblock}: the serve paths "
-                "run 'attn' stacks only (ROADMAP queue 1: other model "
-                "families)")
+    # --- serving ----------------------------------------------------------
+    def _make_cache(self, defs_of) -> Dict[str, Any]:
+        n = len(self.cfg.superblock)
+        return {"blocks": [
+            {name: torch.zeros(shape, dtype=dt, device=self.device)
+             for name, (shape, dt) in defs_of(
+                 self.cfg.superblock[i % n]).items()}
+            for i in range(self.cfg.n_layers)]}
 
-    # --- chunked prefill --------------------------------------------------
+    def init_cache(self, batch: int, max_seq: int) -> Dict[str, Any]:
+        """Dense serve caches for ``batch`` rows of ``max_seq`` tokens:
+        ``{"blocks": [...], "index": 0}`` (``cache_block_defs`` a layer)."""
+        cache = self._make_cache(lambda kind: cache_block_defs(
+            self.cfg, kind, batch, max_seq))
+        cache["index"] = 0
+        return cache
+
+    def prefill(self, params, batch, cache):
+        """Run the whole prompt through the model, filling the caches.
+
+        ``batch["tokens"]``: (B, S).  Attention runs in full-sequence mode
+        through ``attend`` with ``cfg.attn_impl`` (``"pallas"``: the
+        flash-attention kernel) and its K/V land in the dense buffers;
+        Mamba2 layers run the full sequence and keep their final state.
+        Returns (last-token logits, cache) with the cache updated in place
+        and its index set to S.
+        """
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = self._embed(params, tokens)
+        cos, sin = rope_freqs(torch.arange(S, device=x.device),
+                              cfg.head_dim_, cfg.rope_theta)
+        n = len(cfg.superblock)
+        for i, (p, c) in enumerate(zip(params["blocks"], cache["blocks"])):
+            kind = cfg.superblock[i % n]
+            if kind == "shared":
+                p = params["shared"]
+            if kind == "mamba2":
+                x, state = _prefill_recurrent(kind, p, x, cfg)
+                c.update(state)
+                continue
+            h = rms_norm(x, p["ln1"], cfg.norm_eps)
+            q, k, v = attn_mod._project_qkv(p["attn"], h, cfg)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+            y = attn_mod.attend(q, k, v, cfg=cfg, causal=True, window=0)
+            x = x + attn_mod.out_proj(p["attn"], y, cfg)
+            _write_prefill_kv(c, k, v, S)
+            h = rms_norm(x, p["ln2"], cfg.norm_eps)
+            x = x + mlp_mod.mlp(p["mlp"], h, cfg)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = self._logits(params, x[:, -1:, :])
+        cache["index"] = S
+        return logits, cache
+
+    @property
+    def supports_chunked_prefill(self) -> bool:
+        """Whether a prompt can be prefilled in segments through the
+        cache: exact for dense-cache attention blocks.  Recurrent mixers
+        (mamba2) recompute their state from the full sequence and prefill
+        whole prompts instead.  (The reference also admits moe, dec and
+        cross, MoE only at drop-free router capacity; those kinds are not
+        ported.)"""
+        return set(self.cfg.superblock) <= {"attn", "shared"}
+
+    @property
+    def supports_continuous_batching(self) -> bool:
+        """Continuous batching prefills admitted requests through the
+        chunked-append path, so it is exact for precisely the stacks
+        chunked prefill is exact for; the rest keep the wave loop."""
+        return self.supports_chunked_prefill
+
     def prefill_chunk(self, params, batch, cache):
         """Append one prompt segment to dense KV caches (chunked prefill).
 
@@ -311,61 +467,80 @@ class Model:
         (last-token logits, cache) with the cache updated in place and its
         index advanced by C.
         """
-        self._serve_guard()
         cfg = self.cfg
         tokens = batch["tokens"]
         C = tokens.shape[1]
         index = int(cache["index"])
         x = self._embed(params, tokens)
         ctx = {"positions": index + torch.arange(C, device=x.device),
-               "index": index}
+               "index": index, "shared_params": params.get("shared")}
         x = _stack_decode(params["blocks"], cache["blocks"], x, ctx, cfg)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = self._logits(params, x[:, -1:, :])
         cache["index"] = index + C
         return logits, cache
 
+    def decode_step(self, params, tokens, cache):
+        """One decode step of the wave runtime: tokens (B, 1) at position
+        ``cache["index"]`` -> (logits (B, 1, V_pad), cache), the cache
+        updated in place and its index advanced by one: a one-token
+        chunk."""
+        return self.prefill_chunk(params, {"tokens": tokens}, cache)
+
     # --- continuous batching ----------------------------------------------
     def init_paged_cache(self, n_groups: int, group_tokens: int):
         """KV pools for the paged layout: ``{"blocks": [...]}`` with
         (n_groups, group_tokens, KV, D) pools per layer.  The page table
         and per-slot lengths live with the engine; group 0 is the
-        allocator's scratch group (idle decode lanes write there)."""
-        self._serve_guard()
-        cfg = self.cfg
-        shape = (n_groups, group_tokens, cfg.n_kv_heads, cfg.head_dim_)
-        dt = dtype_of(cfg.compute_dtype)
-        return {"blocks": [
-            {"k": torch.zeros(shape, dtype=dt, device=self.device),
-             "v": torch.zeros(shape, dtype=dt, device=self.device)}
-            for _ in range(cfg.n_layers)]}
+        allocator's scratch group (idle decode lanes write there).  A
+        stack with a recurrent layer has no paged layout (ValueError)."""
+        return self._make_cache(lambda kind: paged_cache_block_defs(
+            self.cfg, kind, n_groups, group_tokens))
 
     def decode_step_multi(self, params, tokens, cache, lengths,
-                          page_table):
+                          page_table=None):
         """Continuous-batching decode: C token(s) per slot, each slot at
-        its OWN cache length, through the paged pools.
+        its OWN cache length.
 
         ``tokens``: (B, C); ``lengths``: (B,) int32 tokens already
-        resident per slot; ``page_table``: (B, MAXG) int32.  C == 1 is the
-        ordinary decode step (the paged decode kernel); C > 1 is the
+        resident per slot.  Dense layout (``page_table=None``): the
+        blocks are per-slot (B, max_seq, KV, D) buffers, appended by
+        scatter, attended densely.  Paged layout: the blocks are pools and
+        ``page_table`` (B, MAXG) int32 maps each slot's logical groups to
+        physical ones; C == 1 is the paged decode kernel.  C > 1 is the
         speculative-verify dispatch: column i of slot b sits at position
         ``lengths[b] + i`` and the causal per-slot masks make each
         column's logits what C successive single-token steps would give.
-        Idle slots are decoded too (their page rows point at the scratch
-        group and the engine discards their outputs).  Returns (logits
-        (B, C, V_pad), cache).
+        Idle slots are decoded too (the engine discards their outputs).
+        Returns (logits (B, C, V_pad), cache).
         """
-        self._serve_guard()
         cfg = self.cfg
         C = tokens.shape[1]
         x = self._embed(params, tokens)
         ctx = {"positions": lengths.long()[:, None]
                + torch.arange(C, device=x.device)[None],
                "index": lengths,
+               "shared_params": params.get("shared"),
                "page_table": page_table}
         x = _stack_decode(params["blocks"], cache["blocks"], x, ctx, cfg)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self._logits(params, x), cache
+
+    def prefill_chunk_slot(self, params, batch, cache, slot: int,
+                           length: int):
+        """Append one prompt chunk for ONE slot of a batched dense cache.
+
+        ``batch["tokens"]``: (1, C).  The slot's rows of every buffer are
+        views, so the exact ``prefill_chunk`` path writes them in place
+        while the other slots keep their state.  Returns (last-token
+        logits, cache).
+        """
+        view = {"blocks": [{name: t[slot:slot + 1]
+                            for name, t in layer.items()}
+                           for layer in cache["blocks"]],
+                "index": length}
+        logits, _ = self.prefill_chunk(params, batch, view)
+        return logits, cache
 
     def prefill_chunk_slot_paged(self, params, batch, cache, page_row,
                                  length: int):

@@ -1,12 +1,15 @@
-"""Serving engine: continuous-batching runtime over a paged KV cache.
+"""Serving engine: continuous batching over dense or paged KV caches,
+and the equal-length wave runtime.
 
-Counterpart of ``repro.serve.engine`` on the paged continuous runtime
-(``kv_layout="paged"``), the configuration the live system under tune
-runs: a slot scheduler admits requests into decode slots as they free
-up, each admission reserves page groups and prefills its prompt through
-the exact chunked path, and decode is one batched dispatch per step at
-per-slot cache lengths, whose attention is the paged decode kernel.  The
-knobs ``serve_knob_space`` sweeps all act here:
+Counterpart of ``repro.serve.engine``.  The continuous runtime (the
+default) admits requests into decode slots as they free up, prefills
+each admission's prompt through the exact chunked path, and decodes
+every slot in one batched dispatch a step at per-slot cache lengths.
+Its KV layout is ``dense`` (the default: per-slot (B, max_seq, KV, D)
+buffers, attended densely) or ``paged`` (a pool of page groups and an
+allocator; the attention of a decode step is the paged decode kernel),
+the configuration the live system under tune runs.  The knobs
+``serve_knob_space`` sweeps all act here:
 
 * ``schedule``: ``fifo``, ``sjf`` (shortest prompt first, with a bounded
   bypass of a head whose reservation does not fit) or ``interleave``
@@ -14,9 +17,9 @@ knobs ``serve_knob_space`` sweeps all act here:
 * ``page_policy``: ``reserve`` (worst-case reservations) or
   ``on_demand`` (prompt-size reservations grown as decode crosses group
   boundaries; on exhaustion the cheapest-recompute request is preempted
-  and re-prefilled later);
+  and re-prefilled later); paged layout only;
 * ``share_prefix``: admission maps registry-matched prompt-prefix groups
-  copy-on-write instead of prefilling them;
+  copy-on-write instead of prefilling them; paged layout only;
 * ``draft_len``: n-gram drafts from a request's own history ride extra
   columns of the decode dispatch (a verify step, plain PyTorch attention
   as in the reference) and the prefix that matches what single-token
@@ -28,17 +31,24 @@ fingerprints its live request window (``serve.workload``), and when the
 mix drifts from the signature its knobs were tuned under it re-tunes
 them on the serve surrogate and swaps the winner into the running loop
 at a step boundary: ``max_batch`` (the admission cap), ``schedule``,
-``page_policy``, ``prefill_chunk``, ``draft_len`` and ``share_prefix``.  With ``autotune_kernels`` the
-engine tunes (or loads from the autotune cache) the launch configs of its
-kernel shapes on its own device and adopts the paged kernel's tuned
-``pages_per_block`` as the pool's group size.
+``page_policy``, ``prefill_chunk``, ``draft_len`` and ``share_prefix``.
+
+The wave runtime (``runtime="wave"``, and every stack without
+``supports_continuous_batching``, such as Zamba2's Mamba2 layers) packs
+equal-length prompts into waves of ``batch_slots``, prefills each wave
+whole (``Model.prefill``: under ``attn_impl="pallas"`` the
+flash-attention kernel) or in chunks, and decodes it in lockstep over
+dense caches.  With ``autotune_kernels`` the engine tunes (or loads from
+the autotune cache) the launch configs of its kernel shapes on its own
+device: dense decode at its slot shape, the paged kernel's
+``pages_per_block`` (adopted as the pool's group size), and on the wave
+runtime flash attention and RMSNorm at each wave's prompt length.
 
 ``ServeConfig`` keeps every field and default of the reference so configs
-carry over; a knob whose path is not ported yet (the dense layout, the
-wave runtime, meshes) raises ``NotImplementedError``
-naming its ROADMAP item when the engine is built (it is never silently
-ignored).  The engine runs on ``device``; the default ``"cuda"`` raises
-without a card.
+carry over; meshes (``mesh_shape``) are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item when the engine is
+built (the knob is never silently ignored).  The engine runs on
+``device``; the default ``"cuda"`` raises without a card.
 """
 from __future__ import annotations
 
@@ -193,11 +203,6 @@ class ServeConfig:
 # (knob, predicate that means "set to a value the port does not run",
 #  the ROADMAP queue-1 item that ports that path, by its title)
 _UNPORTED = (
-    ("runtime", lambda c: c.runtime != "continuous",
-     "the wave runtime (ROADMAP queue 1: dense layout and wave runtime)"),
-    ("kv_layout", lambda c: c.kv_layout != "paged",
-     "the dense KV layout (ROADMAP queue 1: dense layout and wave "
-     "runtime)"),
     ("mesh_shape", lambda c: c.mesh_shape is not None,
      "multi-device serving (ROADMAP queue 1: multi-device)"),
 )
@@ -286,19 +291,35 @@ class ServeEngine:
         # tuned launch configs for this engine's kernel shapes (filled when
         # cfg.autotune_kernels; consulted implicitly by kernels.ops)
         self.kernel_blocks: Dict[str, Dict[str, Any]] = {}
-        # the last generation's OnlineRetuner (cfg.retune), else None
-        self.last_retuner = None
+        # the last generation's OnlineRetuner (cfg.retune), allocator and
+        # prefix registry (paged layout only), else None
+        self.last_retuner = self.last_alloc = self.last_prefix = None
+        self._continuous = (cfg.runtime == "continuous"
+                            and model.supports_continuous_batching)
+        self._paged = self._continuous and cfg.kv_layout == "paged"
+        if cfg.kv_layout == "paged" and not self._paged:
+            # The reference's wave fallback (semantics, not a device or
+            # kernel fallback): a stack without continuous support runs
+            # the wave loop over dense buffers even when the config asks
+            # for paging.  The config passed the paged layout's lenient
+            # one-request validation, so restore the dense footprint it
+            # waived: kv_cache_pages reports the memory really allocated.
+            needed = cfg.batch_slots * cfg.max_seq
+            if cfg.kv_cache_pages * PAGE_TOKENS < needed:
+                cfg.kv_cache_pages = -(-needed // PAGE_TOKENS)
         mcfg = model.cfg
         if cfg.autotune_kernels:
             # The reference's quirk, kept: the engine tunes the dense
-            # decode kernel at its slot shape although the paged runtime
-            # never runs it (ROADMAP queue 3).
+            # decode kernel at its slot shape, which no layout's decode
+            # runs (dense-layout decode attends with impl="dense";
+            # ROADMAP queue 3).
             self.kernel_blocks["decode_attention"] = self._ensure(
                 "decode_attention",
                 {"B": cfg.batch_slots, "S": cfg.max_seq,
                  "H": mcfg.n_heads, "KV": mcfg.n_kv_heads,
                  "D": mcfg.head_dim_})
-        self._size_paged_pool()
+        if self._paged:
+            self._size_paged_pool()
 
     def _ensure(self, kernel: str, dims: Dict[str, int]) -> Dict[str, Any]:
         return autotune.ensure_tuned(kernel, dims,
@@ -341,6 +362,23 @@ class ServeEngine:
                                    self.max_groups + 1)
         # the config reports the pool actually allocated
         cfg.kv_cache_pages = self.pool_groups * ppb
+
+    def _warm_prefill_blocks(self, prompt_len: int) -> None:
+        """Tune (or load) the launch configs of the shapes a wave runs on
+        this engine's device: prefill attention at S = prompt_len, RMSNorm
+        at the prefill and decode row counts.  Cache hits are free.  The
+        model calls the plain ``rms_norm``, so the RMSNorm entries are
+        tuned and never read (a reference quirk, ROADMAP queue 3)."""
+        mcfg = self.model.cfg
+        B = self.cfg.batch_slots
+        self.kernel_blocks["flash_attention"] = self._ensure(
+            "flash_attention",
+            {"B": B, "S": prompt_len, "SK": prompt_len, "H": mcfg.n_heads,
+             "KV": mcfg.n_kv_heads, "D": mcfg.head_dim_})
+        self.kernel_blocks["rmsnorm_prefill"] = self._ensure(
+            "rmsnorm", {"ROWS": B * prompt_len, "D": mcfg.d_model})
+        self.kernel_blocks["rmsnorm_decode"] = self._ensure(
+            "rmsnorm", {"ROWS": B, "D": mcfg.d_model})
 
     def _make_retuner(self):
         """The online workload-aware retuner for this engine (cfg.retune).
@@ -400,9 +438,11 @@ class ServeEngine:
     ) -> GenerationResult:
         """Generate continuations for a batch of requests.
 
-        Prompts may have mixed lengths and ``max_new_tokens`` may be
-        per-request; completed requests free their slot and KV pages for
-        pending ones mid-generation.
+        Under the continuous runtime prompts may have mixed lengths and
+        ``max_new_tokens`` may be per-request; completed requests free
+        their slot (and KV pages) for pending ones mid-generation.  The
+        wave runtime takes equal-length prompts, packed into
+        ``batch_slots``-sized waves, a short last wave padded with copies.
         """
         n = len(prompts)
         if isinstance(max_new_tokens, (int, np.integer)):
@@ -417,7 +457,121 @@ class ServeEngine:
         for p, m in zip(prompts, max_new):
             if len(p) + m > self.cfg.max_seq:
                 raise ValueError("prompt + generation exceeds max_seq")
-        return self._generate_continuous(prompts, max_new)
+        if self._continuous:
+            return self._generate_continuous(prompts, max_new)
+        return self._generate_waves(prompts, max_new)
+
+    # ------------------------------------------------------------------
+    # wave runtime
+    # ------------------------------------------------------------------
+    def _generate_waves(self, prompts, max_new: List[int]
+                        ) -> GenerationResult:
+        lens = {len(p) for p in prompts}
+        if len(lens) != 1:
+            raise ValueError("the wave runtime batches equal-length "
+                             f"prompts; got lengths {sorted(lens)} "
+                             "(use runtime='continuous' for mixed)")
+        (plen,) = lens
+        if self.cfg.autotune_kernels:
+            self._warm_prefill_blocks(plen)
+        self.last_alloc = self.last_prefix = None
+        slots = self.cfg.batch_slots
+        outputs: List[List[int]] = []
+        per_request: List[Dict[str, Any]] = []
+        prefill_s = decode_s = 0.0
+        steps = chunks = 0
+        t0 = time.time()
+        for start in range(0, len(prompts), slots):
+            wave = list(prompts[start:start + slots])
+            wave_new = max_new[start:start + slots]
+            n_real = len(wave)
+            while len(wave) < slots:
+                wave.append(wave[0])  # pad with a copy; discarded later
+            toks, pf, dc, st, nc = self._generate_wave(
+                np.asarray(wave, np.int64), max(wave_new))
+            wave_done = time.time() - t0
+            for i in range(n_real):
+                t = toks[i][:wave_new[i]]
+                outputs.append(t)
+                per_request.append({
+                    "rid": start + i, "prompt_len": plen,
+                    "new_tokens": len(t), "latency_s": wave_done,
+                    "ttft_s": wave_done - dc,
+                    "preemptions": 0,  # waves hold slots to completion
+                })
+            prefill_s += pf
+            decode_s += dc
+            steps += st
+            chunks += nc
+        return GenerationResult(outputs, prefill_s, decode_s, steps, chunks,
+                                per_request)
+
+    def _generate_wave(self, prompt_arr: np.ndarray, max_new: int):
+        """One wave: prefill (whole, or in chunks where the stack supports
+        it), then lockstep decode until ``max_new`` or every row hit
+        ``eos``.  Returns (tokens a row, prefill s, decode s, decode
+        dispatches, prefill dispatches)."""
+        B, P = prompt_arr.shape
+        cache = self.model.init_cache(B, self.cfg.max_seq)
+        chunk = self.cfg.prefill_chunk
+        chunked = chunk < P and self.model.supports_chunked_prefill
+        # host->device copy outside the timed window, as in the reference
+        tokens = torch.as_tensor(prompt_arr, device=self.device)
+        t0 = time.time()
+        if chunked:
+            n_chunks = 0
+            for s0 in range(0, P, chunk):
+                logits, cache = self.model.prefill_chunk(
+                    self.params, {"tokens": tokens[:, s0:s0 + chunk]}, cache)
+                n_chunks += 1
+        else:
+            logits, cache = self.model.prefill(self.params,
+                                               {"tokens": tokens}, cache)
+            n_chunks = 1
+        self._sync()
+        prefill_s = time.time() - t0
+
+        eos = self.cfg.eos_token
+        out = np.zeros((B, max_new), np.int64)
+        done = np.zeros(B, bool)
+        t0 = time.time()
+        produced = 0
+        for step in range(max_new):
+            tok = self._sample(logits, step)
+            out[:, step] = tok[:, 0].cpu().numpy()
+            produced = step + 1
+            if eos is not None:
+                done |= out[:, step] == eos
+                if done.all():
+                    break
+            if produced < max_new:
+                logits, cache = self.model.decode_step(self.params, tok,
+                                                       cache)
+        decode_s = time.time() - t0
+
+        results = []
+        for b in range(B):
+            toks = out[b, :produced].tolist()
+            if eos is not None and eos in toks:
+                toks = toks[:toks.index(eos) + 1]
+            results.append(toks)
+        return results, prefill_s, decode_s, produced, n_chunks
+
+    def _sample(self, logits: torch.Tensor, step: int) -> torch.Tensor:
+        """The wave's next tokens (B, 1) from its last logits: greedy, or
+        with ``temperature`` the Gumbel-max draw of every row from one
+        generator seeded by the key (seed, step), the port's counterpart
+        of the reference's ``fold_in(PRNGKey(seed), step)`` over the whole
+        wave (``_token_seed``; the noise made on the CPU in f64 and
+        rounded once to f32, as in ``_noise``)."""
+        lg = logits[:, -1, :self.model.cfg.vocab_size].float()
+        if self.cfg.temperature > 0:
+            gen = torch.Generator()
+            gen.manual_seed(_token_seed((self.cfg.seed, step)))
+            u = torch.rand(lg.shape, generator=gen, dtype=torch.float64)
+            noise = -self.cfg.temperature * torch.log(-torch.log(u))
+            lg = lg + noise.float().to(lg.device)
+        return lg.argmax(-1, keepdim=True)
 
     # ------------------------------------------------------------------
     # continuous-batching runtime
@@ -510,9 +664,14 @@ class ServeEngine:
         return []
 
     def _init_continuous_cache(self):
-        """Slot KV state: the paged pools."""
-        return self.model.init_paged_cache(self.pool_groups,
-                                           self.group_tokens)
+        """Slot KV state: the paged pools, or dense per-slot buffers (their
+        lengths are per-slot host state, so the scalar index goes)."""
+        if self._paged:
+            return self.model.init_paged_cache(self.pool_groups,
+                                               self.group_tokens)
+        cache = self.model.init_cache(self.cfg.batch_slots, self.cfg.max_seq)
+        del cache["index"]
+        return cache
 
     def _generate_continuous(self, prompts, max_new: List[int]
                              ) -> GenerationResult:
@@ -523,19 +682,23 @@ class ServeEngine:
                 for i, p in enumerate(prompts)]
         sched = SlotScheduler(cfg.schedule, B, page_policy=cfg.page_policy)
         sched.submit(reqs)
-        # the allocator mirrors the device pool exactly
-        alloc = PageAllocator(self.pool_groups * self.group_pages,
-                              PAGE_TOKENS, self.group_pages)
-        page_tables = np.zeros((B, self.max_groups), np.int32)
-        # with retuning the registry is kept warm even while sharing is
-        # off, so a mid-run swap to share_prefix has resident prompts to
-        # match (matching is gated on the live cfg.share_prefix)
-        prefix = (PrefixIndex(alloc) if cfg.share_prefix or cfg.retune
-                  else None)
+        alloc = prefix = page_tables = None
+        if self._paged:
+            # the allocator mirrors the device pool exactly
+            alloc = PageAllocator(self.pool_groups * self.group_pages,
+                                  PAGE_TOKENS, self.group_pages)
+            page_tables = np.zeros((B, self.max_groups), np.int32)
+            # with retuning the registry is kept warm even while sharing
+            # is off, so a mid-run swap to share_prefix has resident
+            # prompts to match (matching is gated on the live
+            # cfg.share_prefix)
+            if cfg.share_prefix or cfg.retune:
+                prefix = PrefixIndex(alloc)
         # on_demand reservations need the decode extend path until they
         # drain, also after a retune swaps the policy back to reserve: the
-        # latch only ever sets
-        ever_on_demand = sched.on_demand
+        # latch only ever sets.  Dense buffers have no allocator: the
+        # page policy is inert there
+        ever_on_demand = alloc is not None and sched.on_demand
         cache = self._init_continuous_cache()
         # admission cap (the retuner's max_batch knob): only slots below
         # it admit, so the dispatch shapes never change
@@ -570,11 +733,16 @@ class ServeEngine:
             nonlocal cache, prefill_s, chunks_issued
             piece_tokens = slot_chunks[b].pop(0)
             piece = {"tokens": torch.as_tensor(piece_tokens, device=dev)}
-            page_row = torch.as_tensor(page_tables[b], device=dev)
             r = slot_req[b]
             t = time.time()
-            logits, cache = self.model.prefill_chunk_slot_paged(
-                self.params, piece, cache, page_row, int(lengths[b]))
+            if self._paged:
+                logits, cache = self.model.prefill_chunk_slot_paged(
+                    self.params, piece, cache,
+                    torch.as_tensor(page_tables[b], device=dev),
+                    int(lengths[b]))
+            else:
+                logits, cache = self.model.prefill_chunk_slot(
+                    self.params, piece, cache, b, int(lengths[b]))
             lengths[b] += piece_tokens.shape[1]
             chunks_issued += 1
             if not slot_chunks[b]:  # prefill done: sample the next token
@@ -607,7 +775,8 @@ class ServeEngine:
             slot_chunks[b] = []
             lengths[b] = 0
             next_tok[b] = 0
-            page_tables[b, :] = PageAllocator.SCRATCH_GROUP
+            if alloc is not None:
+                page_tables[b, :] = PageAllocator.SCRATCH_GROUP
 
         def finish_slot(b: int) -> None:
             r = slot_req[b]
@@ -621,7 +790,8 @@ class ServeEngine:
                 "preemptions": r.preemptions,
                 "shared_tokens": shared_by_rid.get(r.rid, 0),
             }
-            alloc.release(r.rid)
+            if alloc is not None:
+                alloc.release(r.rid)
             clear_slot(b)
 
         def preempt_slot(b: int) -> None:
@@ -640,8 +810,11 @@ class ServeEngine:
 
         def admit_tokens(r: Request) -> int:
             """The admission reservation: worst-case prompt + max_new
-            under ``reserve``, the prefill footprint under ``on_demand``."""
-            return r.resident_tokens if sched.on_demand else r.total_tokens
+            under ``reserve``, the prefill footprint under ``on_demand``
+            (paged layout only)."""
+            if alloc is not None and sched.on_demand:
+                return r.resident_tokens
+            return r.total_tokens
 
         def shared_match(r: Request):
             """``(gids, covered, cow)`` the registry offers ``r``: live
@@ -699,8 +872,11 @@ class ServeEngine:
             else None: head first in policy order; under ``sjf`` a bounded
             bypass admits the first fitting pending request when the
             head's reservation does not fit; fifo and interleave stay
-            strictly in order."""
+            strictly in order.  Dense buffers hold every slot's worst
+            case: the head is always admissible."""
             head = sched.peek()
+            if alloc is None:
+                return sched.pop(), None, 0
             got = try_admit(head)
             if got is not None:
                 sched.pop()
@@ -749,14 +925,16 @@ class ServeEngine:
 
         def dispatch(feed: np.ndarray, active: List[int]) -> np.ndarray:
             """One batched decode dispatch of ``feed`` (B, C) -> sampled
-            tokens (B, C) on the host: C == 1 runs the paged decode
-            kernel, C > 1 the verify attention."""
+            tokens (B, C) on the host: on the paged layout C == 1 runs
+            the paged decode kernel, C > 1 the verify attention; dense
+            buffers attend densely."""
             nonlocal cache, decode_s, steps
             t = time.time()
             logits, cache = self.model.decode_step_multi(
                 self.params, torch.as_tensor(feed, device=dev), cache,
                 torch.as_tensor(lengths, dtype=torch.int32, device=dev),
-                torch.as_tensor(page_tables, device=dev))
+                None if page_tables is None
+                else torch.as_tensor(page_tables, device=dev))
             if cfg.temperature <= 0:
                 toks = self._greedy_grid(logits)
             else:
@@ -775,8 +953,10 @@ class ServeEngine:
             boundary: no drain, and no change of the dispatch shapes
             (``max_batch`` caps admission; the slot count is fixed).  No
             greedy token can change: every knob here is token-invariant.
-            Updates ``self.cfg`` in place, as the reference does.  Returns
-            {knob: (old, new)} for the knobs that moved."""
+            Updates ``self.cfg`` in place, as the reference does.  On
+            dense buffers the paged-only knobs (page_policy,
+            share_prefix) stay as they are, inert.  Returns {knob: (old,
+            new)} for the knobs that moved."""
             nonlocal slot_cap, ever_on_demand
             applied: Dict[str, Any] = {}
             new_cap = min(int(knob_cfg["max_batch"]), B)
@@ -789,7 +969,7 @@ class ServeEngine:
                 sched.set_policy(new_sched)  # re-sorts pending
                 cfg.schedule = new_sched
             new_pp = str(knob_cfg.get("page_policy", cfg.page_policy))
-            if new_pp != cfg.page_policy:
+            if alloc is not None and new_pp != cfg.page_policy:
                 applied["page_policy"] = (cfg.page_policy, new_pp)
                 sched.set_page_policy(new_pp)
                 cfg.page_policy = new_pp
@@ -805,7 +985,7 @@ class ServeEngine:
                 cfg.draft_len = new_draft
             new_share = bool(int(knob_cfg.get(
                 "share_prefix", int(cfg.share_prefix))))
-            if new_share != cfg.share_prefix:
+            if alloc is not None and new_share != cfg.share_prefix:
                 applied["share_prefix"] = (cfg.share_prefix, new_share)
                 cfg.share_prefix = new_share
             return applied
@@ -828,8 +1008,9 @@ class ServeEngine:
                         seen_rids.add(head.rid)  # re-admissions don't
                         window.record_request(steps, head.prompt,
                                               head.max_new)
-                    page_tables[b, :] = PageAllocator.SCRATCH_GROUP
-                    page_tables[b, :len(groups)] = groups
+                    if groups is not None:
+                        page_tables[b, :] = PageAllocator.SCRATCH_GROUP
+                        page_tables[b, :len(groups)] = groups
                     if covered:
                         shared_total += covered
                         shared_by_rid[head.rid] = (
@@ -963,7 +1144,8 @@ class ServeEngine:
             loop()
         except BaseException:
             # no page group may outlive the generation
-            alloc.release_all()
+            if alloc is not None:
+                alloc.release_all()
             raise
         finally:
             # post-run pool introspection (tests/bench), even on unwind

@@ -400,8 +400,17 @@ class TestSurrogateRankAgreement:
             res[s].per_request, key=lambda r: r["latency_s"])] for s in res}
         # sjf finishes the four short prompts before the long one
         assert order["sjf"][-1] == 0 and order["fifo"][0] == 0
-        mean = {s: np.mean([r["latency_s"] for r in res[s].per_request])
-                for s in res}
+        # Mean latency counted in dispatches, not wall-clock seconds (host
+        # noise moves those).  batch_slots=1 serialises the requests: each
+        # costs ceil(len / prefill_chunk) prefill chunks and max_new - 1
+        # decode steps (its first token comes from prefill), and finishes
+        # after its own and those of every request before it
+        cost = {i: -(-len(p) // 8) + 4 - 1 for i, p in enumerate(prompts)}
+        mean = {}
+        for s in res:
+            finish = np.cumsum([cost[rid] for rid in order[s]])
+            assert finish[-1] == res[s].prefill_chunks + res[s].steps
+            mean[s] = float(np.mean(finish))
         assert mean["sjf"] < mean["fifo"]
         assert res["sjf"].steps == res["fifo"].steps
         s_f = self._surrogate("fifo", pages=64)

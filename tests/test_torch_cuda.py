@@ -861,3 +861,64 @@ def test_train_loop_resume_on_card(card, tmp_path):
     for a, b in zip(straight["history"][2:], resumed["history"]):
         assert abs(a["loss"] - b["loss"]) <= 1e-4 * abs(a["loss"])
     assert resumed["params"]["embed"].device.type == "cuda"
+
+
+# (ServeConfig changes, prompts, max_new) on the dense layout and the wave
+# runtime
+DENSE_RUNS = {
+    "dense": (dict(kv_layout="dense"), [[1, 2, 3, 4, 5], [9, 8, 7],
+                                       [2, 2, 2, 2, 2, 2, 2, 2, 2]],
+              [6, 3, 5]),
+    "dense-drafts": (dict(kv_layout="dense", draft_len=3),
+                     [[5, 3, 5, 3, 5], [9, 8, 7]], [8, 4]),
+    "wave": (dict(runtime="wave"), [[1, 2, 3, 4, 5], [9, 8, 7, 6, 5],
+                                    [2, 7, 1, 8, 2]], [6, 3, 5]),
+    "wave-chunked": (dict(runtime="wave", prefill_chunk=2),
+                     [[1, 2, 3, 4, 5], [9, 8, 7, 6, 5]], 4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", sorted(DENSE_RUNS))
+def test_dense_and_wave_serving_on_card_match_cpu(card, run):
+    """A tiny f32 model on the dense layout and the wave runtime: the
+    card's tokens and counts are the CPU's, and neither launches the
+    paged kernel."""
+    knobs, prompts, max_new = DENSE_RUNS[run]
+    params = Model(TINY_F32, device="cpu").init(0)
+    scfg = ServeConfig(**dict(dict(max_seq=32, batch_slots=2,
+                                   prefill_chunk=4), **knobs))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(Model(TINY_F32, device=dev), params, scfg,
+                          device=dev)
+        before = pa.paged_flash_decode_cuda.launches
+        res = eng.generate(prompts, max_new)
+        assert pa.paged_flash_decode_cuda.launches == before
+        assert eng.last_alloc is None
+        out[dev] = (res.tokens, res.steps, res.prefill_chunks, res.drafted,
+                    res.accepted)
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.cuda
+def test_wave_prefill_launches_flash_once_a_layer(card):
+    """Under attn_impl="pallas" a wave's whole-prompt prefill launches
+    the flash-attention kernel once per attention layer and decode never
+    does; tokens equal the plain path's on the CPU."""
+    cfg = dataclasses.replace(TINY_F32, attn_impl="pallas")
+    params = Model(cfg, device="cpu").init(0)
+    scfg = ServeConfig(max_seq=64, batch_slots=2, runtime="wave",
+                       prefill_chunk=64)
+    prompts = [[1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13]] * 2 + [
+        [9, 8, 7, 6, 5, 4, 3, 2, 1, 2, 3, 4, 5]]
+    want = ServeEngine(Model(cfg, device="cpu"), params, scfg,
+                       device="cpu").generate(prompts, 6)
+    eng = ServeEngine(Model(cfg, device="cuda"), params, scfg, device="cuda")
+    before = fa.flash_attention_cuda.launches
+    got = eng.generate(prompts, 6)
+    waves = 2
+    assert fa.flash_attention_cuda.launches - before == \
+        cfg.n_layers * waves
+    assert got.prefill_chunks == waves
+    assert got.tokens == want.tokens

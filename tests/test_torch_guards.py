@@ -4,8 +4,9 @@
   anything of ``repro``: checked by importing each module on its own and
   by an AST scan of the sources.
 * Entry points default to ``device="cuda"`` and raise without a card.
-* Every serve knob whose path is not ported raises ``NotImplementedError``
-  naming its ROADMAP item; the ported knobs build and generate
+* Every serve knob whose path is not ported (a mesh) raises
+  ``NotImplementedError`` naming its ROADMAP item; the ported knobs, the
+  dense layout and the wave runtime build and generate
   (``tests/test_torch_engine.py`` and ``tests/test_torch_serve_knobs.py``
   hold them against the reference engine).
 """
@@ -144,8 +145,28 @@ def test_launcher_runs_on_the_cpu_when_asked(capsys):
     from repro_torch.launch.serve import main
 
     assert main(["--arch", "gemma-7b", "--requests", "2", "--max-new", "3",
-                 "--device", "cpu"]) == 0
+                 "--kv-layout", "paged", "--device", "cpu"]) == 0
     assert "continuous/paged/fifo on cpu" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv,mode", [
+    ([], "continuous/dense/fifo"),
+    (["--runtime", "wave"], "wave"),
+    (["--arch", "zamba2-1.2b", "--runtime", "wave"], "wave"),
+    (["--arch", "zamba2-1.2b", "--kv-layout", "paged"], "wave"),
+], ids=["default", "wave", "zamba2-wave", "zamba2-paged"])
+def test_launcher_runs_the_dense_layout_and_wave_runtime(capsys, argv, mode):
+    """``--runtime`` and ``--kv-layout`` reach the engine (default: the
+    reference's continuous runtime on the dense layout); Zamba2 serves on
+    the wave runtime whatever the flags ask, as in the reference."""
+    from repro_torch.launch.serve import main
+
+    args = ["--arch", "gemma-7b", "--requests", "2", "--max-new", "3",
+            "--device", "cpu"] + argv
+    assert main(args) == 0
+    out = capsys.readouterr().out
+    assert f"[{mode} on cpu]: 2 requests" in out
+    assert "kv pool" not in out  # no allocator
 
 
 def test_cotune_entry_points_default_to_the_card(no_cuda):
@@ -168,8 +189,6 @@ def test_cotune_entry_points_default_to_the_card(no_cuda):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(kv_layout="dense"),
-    dict(runtime="wave"),
     dict(mesh_shape=(1, 2)),
 ], ids=lambda k: "-".join(f"{a}={b}" for a, b in k.items()))
 def test_unported_knob_raises(knob):
@@ -178,6 +197,27 @@ def test_unported_knob_raises(knob):
     base.update(knob)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServeEngine(model, model.init(0), ServeConfig(**base), device="cpu")
+
+
+@pytest.mark.parametrize("knob", [
+    dict(kv_layout="dense"),
+    dict(runtime="wave"),
+], ids=lambda k: "-".join(f"{a}={b}" for a, b in k.items()))
+def test_dense_layout_and_wave_runtime_build_and_generate(knob):
+    """The dense layout and the wave runtime (ROADMAP queue 1 item 1,
+    ported) build an engine on the CPU and generate every token asked
+    for, with no allocator (their tokens and counts are held to the
+    reference in ``tests/test_torch_dense_serve.py``)."""
+    model = Model(_small(), device="cpu")
+    base = dict(max_seq=32, batch_slots=2, kv_layout="paged",
+                prefill_chunk=4)
+    base.update(knob)
+    eng = ServeEngine(model, model.init(0), ServeConfig(**base),
+                      device="cpu")
+    res = eng.generate([[1, 2, 3, 4, 5], [1, 2, 3, 4, 6], [7, 8, 9, 1, 2]],
+                       4)
+    assert [len(t) for t in res.tokens] == [4, 4, 4]
+    assert eng.last_alloc is None
 
 
 @pytest.mark.parametrize("knob", [

@@ -128,19 +128,43 @@ def test_self_attention_chunk_append(index, chunk):
                                    np.asarray(wcache[name]), **ATOL)
 
 
+@pytest.mark.parametrize("chain", [1, 3])
+def test_self_attention_per_slot_dense_append(chain):
+    """A (B,) cache index on a dense buffer (the dense continuous layout):
+    each slot appends its token(s) at its own index and attends over its
+    own prefix.  A verify chain (chain > 1) that runs past the buffer
+    writes the columns that fit and drops the rest, as the reference's
+    scatter does; the logits of the columns that fit are the
+    reference's."""
+    rng = np.random.default_rng(6)
+    p = _attn_params(rng)
+    S = 8
+    kb, vb = _np(rng, 2, S, 2, 16), _np(rng, 2, S, 2, 16)
+    x = _np(rng, 2, chain, 64)
+    idx = np.asarray([3, S - 2], np.int32)
+    pos = idx[:, None] + np.arange(chain)
+    want, wcache = jattn.self_attention(
+        {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x), cfg=TINY,
+        positions=jnp.asarray(pos),
+        cache={"k": jnp.asarray(kb), "v": jnp.asarray(vb)},
+        cache_index=jnp.asarray(idx))
+    got, gcache = attention.self_attention(
+        {k: _t(v) for k, v in p.items()}, _t(x), cfg=CFG, positions=_t(pos),
+        cache={"k": _t(kb), "v": _t(vb)}, cache_index=torch.from_numpy(idx))
+    fits = min(chain, 2)  # slot 1's columns past the buffer are dropped
+    np.testing.assert_allclose(got.numpy()[0], np.asarray(want)[0], **ATOL)
+    np.testing.assert_allclose(got.numpy()[1, :fits],
+                               np.asarray(want)[1, :fits], **ATOL)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(gcache[name].numpy(),
+                                   np.asarray(wcache[name]), **ATOL)
+
+
 def test_unported_attention_paths_raise():
-    """Cache-free attention and the blocked impl are ported (held to the
-    reference in tests/test_torch_ssm.py); the banded sliding-window impl
-    and the per-slot dense cache are not."""
+    """Cache-free attention, the blocked impl and the per-slot dense cache
+    are ported (held to the reference in tests/test_torch_ssm.py and
+    above); the banded sliding-window impl is not."""
     rng = np.random.default_rng(5)
-    p = {k: _t(v) for k, v in _attn_params(rng).items()}
-    x = _t(_np(rng, 1, 2, 64))
-    cache = {"k": torch.zeros(1, 8, CFG.n_kv_heads, CFG.head_dim_),
-             "v": torch.zeros(1, 8, CFG.n_kv_heads, CFG.head_dim_)}
-    with pytest.raises(NotImplementedError, match="per-slot"):
-        attention.self_attention(p, x, cfg=CFG, positions=torch.arange(2),
-                                 cache=cache,
-                                 cache_index=torch.tensor([0]))
     q = _t(_np(rng, 1, 16, 4, 16))
     with pytest.raises(NotImplementedError, match="impl 'local'"):
         attention.attend(q, q, q, cfg=CFG, impl="local", window=4)

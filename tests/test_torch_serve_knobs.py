@@ -616,7 +616,7 @@ def test_launcher_runs_the_knob_flags(capsys):
     assert main(["--arch", "gemma-7b", "--requests", "4", "--max-new", "20",
                  "--schedule", "sjf", "--page-policy", "on_demand",
                  "--temperature", "0.7", "--kv-pages", "6",
-                 "--device", "cpu"]) == 0
+                 "--kv-layout", "paged", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "continuous/paged/sjf on cpu" in out
     assert int(re.search(r"\[on_demand, (\d+) preemptions\]",

@@ -43,6 +43,7 @@ from repro.models import ssm as jssm
 from repro_torch.configs import ModelConfig, get_config, reduced
 from repro_torch.models import Model, attention, mlp, ssm
 from repro_torch.models.bridge import params_from_numpy
+from repro_torch.serve import ServeConfig, ServeEngine
 
 torch.set_num_threads(1)
 
@@ -254,10 +255,27 @@ def test_gemma_forward_and_loss_match_reference():
 
 
 def test_serve_paths_raise_on_a_hybrid_stack(zamba):
+    """A Mamba2 stack has no paged cache layout: the reference's
+    ValueError (it serves on the wave runtime over dense caches,
+    ``tests/test_torch_zamba2_serve.py``)."""
     _, _, cfg, params = zamba
     model = Model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="has no paged cache layout"):
         model.init_paged_cache(4, 16)
+    assert not model.supports_continuous_batching
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "swa"])
+def test_serving_an_unported_kind_raises(zamba, kind):
+    """Stacks of the other families still raise, by their ROADMAP item's
+    title, before anything can be served."""
+    _, _, cfg, _ = zamba
+    bad = dataclasses.replace(cfg, superblock=("mamba2", kind),
+                              n_layers=4)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1: other model families"):
+        ServeEngine(Model(bad, device="cpu"), {}, ServeConfig(
+            max_seq=32, batch_slots=1, runtime="wave"), device="cpu")
 
 
 @pytest.mark.parametrize("remat", ["full", "dots"])

@@ -213,7 +213,7 @@ def test_serve_launcher_retunes_a_drifting_trace(tmp_path, monkeypatch,
     try:
         assert main(["--arch", "gemma-7b", "--requests", "24",
                      "--max-new", "16", "--mixed", "--drift", "--retune",
-                     "--device", "cpu"]) == 0
+                     "--kv-layout", "paged", "--device", "cpu"]) == 0
     finally:
         autotune.reset_default_cache()
     out = capsys.readouterr().out
